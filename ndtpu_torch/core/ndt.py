@@ -1,0 +1,532 @@
+"""The NDT downsampling pipeline for a batch of clouds (port of
+``ndtpu/core/ndt.py``).
+
+Steps, as in the JAX package (reference ``core_legacy/src/ndt.c:119-222``):
+cloud limits; the voxel-size search (the C bisection, or the seeded
+log-log secant search fused with the key + payload sort, optionally seeded
+by the subsampled Chao1 probe); the per-voxel moments (one launch of the
+segment-moments kernel for the whole batch); the 6-neighbour KL; the
+prune to ``n_desired`` and the compaction.
+
+What changes against the JAX package:
+- ``vmap`` is an explicit leading batch dimension. Every function takes
+  ``[B, N]`` structure-of-arrays tensors and per-cloud ``[B]`` scalars.
+- The batched ``while_loop`` of the searches is a Python loop over rounds.
+  Each round evaluates only the clouds that are still searching (a
+  finished cloud's carry stays frozen, as under ``vmap``), and deciding
+  which clouds those are costs one host sync per round.
+- Voxel keys are int64. A masked point gets ``KEY_PAD`` (2**62), above
+  every valid key, so the sort order equals the JAX int32 order
+  (``INT32_MAX`` padding); the (zy, x) pair keys of the reference search
+  fit one int64 exactly (< 2**55), so one sorted key serves both counts.
+- ``lax.sort`` (stable, multi-operand) is ``torch.sort(stable=True)`` of
+  the key followed by a gather of the payload.
+- Only ``key_mode="packed"``, the gather-mode emit and the ascending prune
+  are ported here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ndtpu_torch.core import voxel as vx
+from ndtpu_torch.core.kl import INT32_MAX, neighbor_min_kl
+from ndtpu_torch.core.moments import finalize_moments, segment_moments_soa
+from ndtpu_torch.utils.device import resolve_device
+
+# Reference constants, ndt.h:38-43.
+DOWNSAMPLE_UPPER_THRESHOLD = 0.2
+MIN_VOXEL_GUESS = 0.01
+MAX_VOXEL_GUESS = 30.0
+MAX_GUESS_ITERATIONS = 15
+PROBE_FACTOR = 4  # cold-probe subsample stride
+
+# grid-cell budget of the packed key (see the JAX module): every admitted
+# grid has < 2**31 - 1024 cells
+_GRID_CELL_BUDGET = float(2**31 - 1024)
+KEY_PAD = 2**62
+_BIG_COUNT = 2**31 - 1  # "no fallback size seen yet"
+
+
+@dataclasses.dataclass
+class NDTResult:
+    """Post-downsample sampler state; every field has a leading batch dim
+    B and K = max_segments(n_desired) segment rows."""
+
+    means: torch.Tensor       # [B, K, 3] f32
+    covs: torch.Tensor        # [B, K, 3, 3] f32
+    counts: torch.Tensor      # [B, K] i32, 0 = empty slot
+    class_hist: torch.Tensor  # [B, K, C+1] i32 ([B, K, 1] = counts, untagged)
+    zyx: torch.Tensor         # [B, K, 3] i32 (z, y, x) sorted; pad INT32_MAX
+    min_kl: torch.Tensor      # [B, K] f32, inf = no valid neighbour pair
+    max_kl: torch.Tensor      # [B, K] f32, -inf = no valid pair
+    lens: torch.Tensor        # [B, 3] i32 grid dims (x, y, z)
+    offsets: torch.Tensor     # [B, 3] f32
+    voxel_size: torch.Tensor  # [B] f32
+    num_valid: torch.Tensor   # [B] i32 occupied voxels, clipped to K
+    converged: torch.Tensor   # [B] bool, the search hit the band
+
+    @property
+    def max_nds(self) -> int:
+        return self.means.shape[-2]
+
+
+def max_segments(n_desired: int) -> int:
+    """Static capacity: the search band tops out at 1.2 n (ndt.h:38)."""
+    return int(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD)) + 8
+
+
+def empty_state(n_desired: int, num_class_slots: int = 1, batch: int = 1,
+                device="cuda") -> NDTResult:
+    """Zero-filled NDTResult with the shapes and dtypes that
+    ``ndt_downsample`` returns for ``batch`` clouds."""
+    dev = resolve_device(device)
+    k = max_segments(n_desired)
+    c = num_class_slots if num_class_slots > 1 else 1
+
+    def z(shape, dtype=torch.float32):
+        return torch.zeros((batch,) + shape, dtype=dtype, device=dev)
+
+    return NDTResult(
+        means=z((k, 3)), covs=z((k, 3, 3)), counts=z((k,), torch.int32),
+        class_hist=z((k, c), torch.int32), zyx=z((k, 3), torch.int32),
+        min_kl=z((k,)), max_kl=z((k,)), lens=z((3,), torch.int32),
+        offsets=z((3,)), voxel_size=z(()), num_valid=z((), torch.int32),
+        converged=z((), torch.bool),
+    )
+
+
+def _f32(x, like):
+    """x as an f32 tensor on like's device. A Python number is filled in
+    on the device: copying it from the host would stall the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
+
+
+def _min_axis_exact_size(d):
+    """Smallest voxel size keeping every axis grid length < 2**24, so a
+    voxel coordinate is exact as an f32 tag column."""
+    return d.amax(-1) / _f32(2.0**24 - 2.0, d)
+
+
+def _min_packable_voxel_size(mins, maxs):
+    """Smallest voxel size whose grid linearises into one key under the
+    cell budget (term-wise bound of prod(d_i/s + 1), see the JAX module).
+    [B, 3] -> [B]. torch has no cbrt: the cube root is taken in float64
+    and rounded to f32, so it may differ from ``jnp.cbrt`` in the last
+    ulp."""
+    d = torch.clamp(maxs - mins, min=0.0)
+    dx, dy, dz = d.unbind(-1)
+    b4 = _f32(_GRID_CELL_BUDGET / 4.0, d)
+    s3 = torch.pow((dx * dy * dz / b4).double(), 1.0 / 3.0).float()
+    s2 = torch.sqrt((dx * dy + dx * dz + dy * dz) / b4)
+    s1 = (dx + dy + dz) / b4
+    return torch.maximum(torch.maximum(torch.maximum(s3, s2), s1),
+                         _min_axis_exact_size(d))
+
+
+def _min_pair_packable_voxel_size(mins, maxs):
+    """Smallest voxel size for the (zy, x) key pair: len_z * len_y < 2**31
+    and every axis < 2**24. [B, 3] -> [B]."""
+    d = torch.clamp(maxs - mins, min=0.0)
+    dy, dz = d[..., 1], d[..., 2]
+    b3 = _f32(_GRID_CELL_BUDGET / 3.0, d)
+    s2 = torch.sqrt(dz * dy / b3)
+    s1 = (dz + dy) / b3
+    return torch.maximum(torch.maximum(s2, s1), _min_axis_exact_size(d))
+
+
+def _limits(px, py, pz, mask):
+    """Masked per-axis min/max of [B, N] coordinates -> ([B, 3], [B, 3])."""
+    big = torch.finfo(torch.float32).max
+    lo = [torch.where(mask, p, big).amin(-1) for p in (px, py, pz)]
+    hi = [torch.where(mask, p, -big).amax(-1) for p in (px, py, pz)]
+    return torch.stack(lo, -1), torch.stack(hi, -1)
+
+
+def _voxel_keys(px, py, pz, mask, voxel_size, mins, maxs):
+    """Per-point int64 voxel key (z * len_y + y) * len_x + x, the
+    reference's x-fastest linearisation; KEY_PAD for masked points.
+    voxel_size [B]. Returns (key [B, N], lens [B, 3] i32, offsets)."""
+    lens, offsets = vx.estimate_voxel_grid(mins, maxs, voxel_size)
+    s = voxel_size[:, None]
+
+    def coord(p, a):
+        return vx.metric_to_voxel_axis(p, s, lens[:, a:a + 1],
+                                       offsets[:, a:a + 1])
+
+    x, y, z = coord(px, 0), coord(py, 1), coord(pz, 2)
+    ln = lens.long()
+    key = torch.where(mask, (z * ln[:, 1:2] + y) * ln[:, 0:1] + x, KEY_PAD)
+    return key, lens, offsets
+
+
+def _run_starts(skey):
+    """True where a sorted key row starts a new run."""
+    new = torch.ones_like(skey, dtype=torch.bool)
+    new[:, 1:] = skey[:, 1:] != skey[:, :-1]
+    return new
+
+
+def _count_runs(skey):
+    """Distinct valid keys of sorted rows [B, N] -> [B] int64."""
+    return ((skey != KEY_PAD) & _run_starts(skey)).sum(-1)
+
+
+def _count_occupied(px, py, pz, mask, voxel_size, mins, maxs):
+    """Number of distinct occupied voxels per cloud at ``voxel_size``. The
+    int64 key packs (zy, x) exactly for every grid inside the pair
+    envelope, so this is also the JAX package's ``_count_occupied_pair``."""
+    key, _, _ = _voxel_keys(px, py, pz, mask, voxel_size, mins, maxs)
+    return _count_runs(torch.sort(key, dim=-1).values)
+
+
+def _ingest(guess, count, lo, hi, best_g, best_c, n_desired, upper):
+    """One evaluation's bookkeeping, shared by the searches: in band
+    [n, 1.2 n]? Too many voxels raise lo, too few lower hi; the smallest
+    count >= n seen is the fallback. Returns (hit, lo, hi, best_g,
+    best_c)."""
+    too_many = count.float() > upper
+    too_few = count < n_desired
+    better = (count >= n_desired) & (count < best_c)
+    return (~too_many & ~too_few,
+            torch.where(too_many, guess, lo),
+            torch.where(too_few, guess, hi),
+            torch.where(better, guess, best_g),
+            torch.where(better, count, best_c))
+
+
+def _search_voxel_size(px, py, pz, mask, n_desired, mins, maxs, lo_min):
+    """The C bisection (ndt.c:136-187), batched: start at (MAX-MIN)/2,
+    shrink [lo, hi] until the count lands in [n, 1.2n] or 15 counts pass;
+    an unconverged cloud keeps the smallest count >= n seen. The lower
+    bound is clamped to ``lo_min`` [B], the envelope where counts are
+    exact. Returns (voxel_size [B] f32, converged [B] bool)."""
+    b = px.shape[0]
+    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
+    lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
+    hi = torch.clamp(lo, min=MAX_VOXEL_GUESS)
+    guess = torch.clamp(lo, min=(MAX_VOXEL_GUESS - MIN_VOXEL_GUESS) / 2.0)
+    done = torch.zeros(b, dtype=torch.bool, device=px.device)
+    best_g = torch.zeros_like(lo)
+    best_c = torch.full((b,), _BIG_COUNT, dtype=torch.int64, device=px.device)
+    for _ in range(MAX_GUESS_ITERATIONS):
+        idx = torch.nonzero(~done).squeeze(-1)  # the round's host sync
+        if idx.numel() == 0:
+            break
+        g = guess[idx]
+        count = _count_occupied(px[idx], py[idx], pz[idx], mask[idx], g,
+                                mins[idx], maxs[idx])
+        hit, l, h, best_g[idx], best_c[idx] = _ingest(
+            g, count, lo[idx], hi[idx], best_g[idx], best_c[idx], n_desired,
+            upper)
+        lo[idx], hi[idx] = l, h
+        guess[idx] = torch.where(hit, g, l + (h - l) / 2.0)
+        done[idx] = hit
+    have_best = best_c < _BIG_COUNT
+    final = torch.where(done, guess, torch.where(have_best, best_g, guess))
+    return final, done
+
+
+def _probe_seed_size(px, py, pz, mask, n_desired, mins, maxs, lo_min):
+    """Cold-start probe: the occupancy of every PROBE_FACTOR-th point at
+    the geometric-mean seed, Chao1-corrected, fed to the alpha = 2 secant
+    step. Steering only: the returned size [B] seeds the fast search,
+    whose exact counts still decide acceptance."""
+    s0, _, _ = vx.estimate_voxel_size(n_desired, mins, maxs)
+    lo0 = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
+    hi0 = torch.clamp(lo0, min=MAX_VOXEL_GUESS)
+    s0 = torch.minimum(torch.maximum(torch.nan_to_num(s0, nan=1.0), lo0), hi0)
+    s_eval = torch.maximum(s0, _min_packable_voxel_size(mins, maxs))
+    f = PROBE_FACTOR
+    key, _, _ = _voxel_keys(px[:, ::f], py[:, ::f], pz[:, ::f], mask[:, ::f],
+                            s_eval, mins, maxs)
+    key = torch.sort(key, dim=-1).values
+    valid = key != KEY_PAD
+    new = _run_starts(key)
+    start = valid & new
+    # a run has length 1 iff the next position starts a run too (the pad
+    # tail's first position counts as a start; the end pads True)
+    ones = torch.ones_like(new[:, :2])
+    nxt1 = torch.cat([new[:, 1:], ones[:, :1]], -1)
+    nxt2 = torch.cat([new[:, 2:], ones], -1)
+    d = start.sum(-1).float()
+    f1 = (start & nxt1).sum(-1).float()
+    f2 = (start & ~nxt1 & nxt2).sum(-1).float()
+    d_hat = d + f1 * (f1 - 1.0) / (2.0 * (f2 + 1.0))
+    target = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD / 2.0), px)
+    step = s_eval * torch.sqrt(torch.clamp(d_hat, min=1.0) / target)
+    return torch.minimum(torch.maximum(torch.nan_to_num(step, nan=1.0), lo0),
+                         hi0)
+
+
+def _sort_payload_at(px, py, pz, mask, classes, size, mins, maxs, tagged):
+    """One stable voxel-key sort at ``size`` [B] with the coordinates (and
+    the class tags, when tagged) as payload. Returns the sorted columns
+    [key, px, py, pz(, cls)], each [B, N]: duplicate keys keep their input
+    order, so the downstream sums have a fixed order."""
+    key, _, _ = _voxel_keys(px, py, pz, mask, size, mins, maxs)
+    skey, order = torch.sort(key, dim=-1, stable=True)
+    payload = (px, py, pz) + ((classes,) if tagged else ())
+    return [skey] + [torch.gather(p, -1, order) for p in payload]
+
+
+def _search_and_sort_fast(px, py, pz, mask, classes, n_desired, mins, maxs,
+                          lo_min, tagged, size0_override=None):
+    """The seeded log-log secant search, each evaluation being the payload
+    sort the moment build consumes (so the accepted evaluation's sort is
+    the build's sort). Evaluation 0 is at the geometric-mean seed, or at
+    ``size0_override`` [B] (the probe's or a warm start's size). At most
+    MAX_GUESS_ITERATIONS further evaluations; the last one is forced to
+    the best fallback size (smallest count >= n seen) so the carried sort
+    matches the returned size on unconverged clouds. The lower bound is
+    clamped to ``lo_min`` [B], the packed-key envelope.
+
+    Returns (voxel_size [B], converged [B], sorted columns)."""
+    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
+    target = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD / 2.0), px)
+    b = px.shape[0]
+    if size0_override is not None:
+        size0 = _f32(size0_override, px).expand(b).clone()
+    else:
+        size0, _, _ = vx.estimate_voxel_size(n_desired, mins, maxs)
+    lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
+    hi = torch.clamp(lo, min=MAX_VOXEL_GUESS)
+    size0 = torch.minimum(torch.maximum(torch.nan_to_num(size0, nan=1.0), lo),
+                          hi)
+
+    cols = _sort_payload_at(px, py, pz, mask, classes, size0, mins, maxs,
+                            tagged)
+    count = _count_runs(cols[0])
+    accepted, lo, hi, best_g, best_c = _ingest(
+        size0, count, lo, hi, torch.zeros_like(size0),
+        torch.full_like(count, _BIG_COUNT), n_desired, upper,
+    )
+    guess = size0
+    prev_g = torch.zeros_like(size0)
+    prev_c = torch.zeros_like(size0)
+    countf = count.float()
+
+    for it in range(1, MAX_GUESS_ITERATIONS + 1):
+        idx = torch.nonzero(~accepted).squeeze(-1)  # the round's host sync
+        if idx.numel() == 0:
+            break
+        g, l, h = guess[idx], lo[idx], hi[idx]
+        bg, bc, pg, pc, cf = (best_g[idx], best_c[idx], prev_g[idx],
+                              prev_c[idx], countf[idx])
+        # measured occupancy exponent from the last two evaluations;
+        # surface prior (2) when no usable pair exists
+        dlog_c = torch.log(torch.clamp(cf, min=1.0) / torch.clamp(pc, min=1.0))
+        dlog_g = torch.log(torch.where(pg > 0, pg, 1.0) / g)
+        usable = (pg > 0) & (dlog_g.abs() > 1e-6) & (dlog_c.abs() > 1e-6)
+        alpha = torch.where(usable, dlog_c / dlog_g, 2.0).clamp(0.5, 4.0)
+        ratio = torch.clamp(cf, min=1.0) / target
+        secant = g * torch.pow(ratio, 1.0 / alpha)
+        inside = (secant > l) & (secant < h)
+        nxt = torch.where(inside, secant, l + (h - l) / 2.0)
+        if it >= MAX_GUESS_ITERATIONS:
+            nxt = torch.where(bc < _BIG_COUNT, bg, nxt)
+        sub = _sort_payload_at(px[idx], py[idx], pz[idx], mask[idx],
+                               classes[idx], nxt, mins[idx], maxs[idx],
+                               tagged)
+        cnt = _count_runs(sub[0])
+        hit, l, h, bg, bc = _ingest(nxt, cnt, l, h, bg, bc, n_desired, upper)
+        accepted[idx], guess[idx], lo[idx], hi[idx] = hit, nxt, l, h
+        best_g[idx], best_c[idx] = bg, bc
+        prev_g[idx], prev_c[idx], countf[idx] = g, cf, cnt.float()
+        for col, new in zip(cols, sub):
+            col[idx] = new
+    return guess, accepted, cols
+
+
+def _moment_inputs(cols, voxel_size, lens, offsets, k_max, tagged):
+    """The segment-moments kernel's inputs from the sorted columns.
+
+    Returns a dict: xt, yt, zt (voxel-centre-shifted coordinates, zero on
+    masked rows), v (validity), seg (dense sorted segment rank, k_max for
+    masked points and segments beyond k_max), cls (tags, or None), tags
+    (the per-segment voxel coords z, y, x masked to each segment's first
+    row, so each segment's sum is the coordinate itself, exactly), and
+    total (distinct occupied voxels per cloud)."""
+    key, pxs, pys, pzs = cols[:4]
+    valid = key != KEY_PAD
+    ln = lens.long()
+    lx, lxy = ln[:, 0:1], ln[:, 0:1] * ln[:, 1:2]
+    rem = key % lxy
+    z, y, x = key // lxy, rem // lx, rem % lx
+
+    new_seg = _run_starts(key) & valid
+    seg = torch.cumsum(new_seg, dim=-1) - 1
+    total = seg[:, -1] + 1
+    seg = torch.where(valid & (seg < k_max) & (seg >= 0), seg, k_max)
+
+    s = voxel_size[:, None]
+
+    def shifted(p, c, a):
+        centre = vx.voxel_to_metric_axis(torch.where(valid, c, 0), s,
+                                         offsets[:, a:a + 1])
+        return torch.where(valid, p - centre, 0.0)
+
+    return {
+        "xt": shifted(pxs, x, 0), "yt": shifted(pys, y, 1),
+        "zt": shifted(pzs, z, 2), "v": valid.float(),
+        "seg": seg.to(torch.int32), "cls": cols[4] if tagged else None,
+        "tags": tuple(torch.where(new_seg, c, 0).float() for c in (z, y, x)),
+        "total": total,
+    }
+
+
+def _build_state(px, py, pz, mask, classes, num_class_slots, voxel_size,
+                 converged, mins, maxs, k_max, presorted=None):
+    """Sort by voxel key (unless the search's sort is given), reduce the
+    moments, compute the neighbour KLs."""
+    lens, offsets = vx.estimate_voxel_grid(mins, maxs, voxel_size)
+    tagged = num_class_slots > 1
+    cols = presorted
+    if cols is None:
+        cols = _sort_payload_at(px, py, pz, mask, classes, voxel_size, mins,
+                                maxs, tagged)
+    inp = _moment_inputs(cols, voxel_size, lens, offsets, k_max, tagged)
+    mom = segment_moments_soa(
+        inp["xt"], inp["yt"], inp["zt"], inp["v"], inp["seg"], k_max,
+        classes=inp["cls"], num_class_slots=num_class_slots if tagged else 0,
+        tags=inp["tags"],
+    )
+    counts = mom["counts"]
+    class_hist = mom["class_hist"] if tagged else counts[..., None]
+    occupied = counts > 0
+    seg_zyx = torch.where(occupied[..., None],
+                          torch.round(mom["tag_sums"]).to(torch.int32),
+                          INT32_MAX)
+    seg_centres = vx.voxel_to_metric_space(
+        torch.where(occupied[..., None], seg_zyx.flip(-1), 0),
+        voxel_size[:, None], offsets[:, None, :],
+    )
+    means, covs = finalize_moments(counts, mom["sum_shift"], mom["sum_outer"],
+                                   seg_centres)
+    min_kl, max_kl = neighbor_min_kl(means, covs, counts, seg_zyx, lens)
+    return NDTResult(
+        means=means, covs=covs, counts=counts, class_hist=class_hist,
+        zyx=seg_zyx, min_kl=min_kl, max_kl=max_kl, lens=lens,
+        offsets=offsets, voxel_size=voxel_size,
+        num_valid=torch.clamp(inp["total"], max=k_max).to(torch.int32),
+        converged=converged,
+    )
+
+
+def _emit(state: NDTResult, n_out: int):
+    """Prune to n_out NDs and compact (ndt.c:28-117), ascending order:
+    the least divergent segments go first.
+
+    Returns (points [B, n_out, 3], covs [B, n_out, 9], labels [B, n_out]
+    i32, out_mask [B, n_out] bool); rows beyond the kept count are zero."""
+    k = state.max_nds
+    b = state.counts.shape[0]
+    to_remove = torch.clamp(state.num_valid - n_out, min=0).long()
+    occupied = state.counts > 0
+    key = torch.where(occupied, state.min_kl, float("inf"))
+    # sort 1: stable ascending prune key; row i of the order has rank i
+    seg_by_kl = torch.sort(key, dim=-1, stable=True).indices
+    ar = torch.arange(k, device=key.device)
+    kept_s = (ar[None] >= to_remove[:, None]) & torch.gather(occupied, -1,
+                                                             seg_by_kl)
+    # sort 2: compaction in ascending segment (voxel-index) order; the
+    # keys are unique
+    comp_key = torch.where(kept_s, seg_by_kl, k + seg_by_kl)
+    order = torch.sort(comp_key, dim=-1).indices
+    perm = torch.gather(seg_by_kl, -1, order)[:, :n_out]
+    out_mask = torch.gather(kept_s, -1, order)[:, :n_out]
+
+    def rows(t):
+        t = t.reshape(b, k, -1)
+        return torch.gather(t, 1, perm[..., None].expand(-1, -1, t.shape[-1]))
+
+    m = out_mask[..., None]
+    pcl = torch.where(m, rows(state.means), 0.0)
+    covs = torch.where(m, rows(state.covs), 0.0)
+    labels = torch.where(out_mask,
+                         rows(state.class_hist).argmax(-1).to(torch.int32), 0)
+    return pcl, covs, labels, out_mask
+
+
+def _search(px, py, pz, mask, classes, n_desired, mins, maxs, tagged, search,
+            fixed_voxel_size, warm_start_size):
+    """Pick each cloud's voxel size. Returns (voxel_size [B], converged
+    [B], the sorted columns at that size or None)."""
+    envelope = _min_packable_voxel_size(mins, maxs)
+    if fixed_voxel_size is not None:
+        # clamp into the key envelope; a binding clamp is not converged
+        requested = _f32(fixed_voxel_size, px).expand(px.shape[0])
+        voxel_size = torch.maximum(requested, envelope)
+        return voxel_size, voxel_size <= requested, None
+    if search in ("fast", "probe"):
+        override = warm_start_size
+        if search == "probe" and warm_start_size is None:
+            override = _probe_seed_size(px, py, pz, mask, n_desired, mins,
+                                        maxs, lo_min=envelope)
+        return _search_and_sort_fast(
+            px, py, pz, mask, classes, n_desired, mins, maxs,
+            lo_min=envelope, tagged=tagged, size0_override=override,
+        )
+    if search != "reference":
+        raise ValueError(f"search must be reference, fast or probe: {search!r}")
+    # exact C trajectory with the pair count, then clamped into the build
+    # envelope; a binding clamp is reported as unconverged
+    voxel_size, converged = _search_voxel_size(
+        px, py, pz, mask, n_desired, mins, maxs,
+        _min_pair_packable_voxel_size(mins, maxs),
+    )
+    clamped = torch.maximum(voxel_size, envelope)
+    return clamped, converged & (clamped <= voxel_size), None
+
+
+def ndt_downsample(points, n_desired: int, mask=None, classes=None,
+                   num_class_slots: int = 1, search: str = "reference",
+                   fixed_voxel_size=None, warm_start_size=None):
+    """Full NDT downsample of a batch of clouds (ndt.c:119-222).
+
+    Args:
+      points: [B, N, 3] float.
+      n_desired: target ND count per cloud.
+      mask: optional [B, N] bool validity (padding rows False).
+      classes: optional [B, N] int class tags in [0, num_class_slots).
+      num_class_slots: n_classes + 1 in reference terms; 1 = untagged.
+      search: "reference" (the exact C bisection), "fast" (seeded secant
+        fused with the payload sort) or "probe" ("fast" seeded by the
+        Chao1 probe).
+      fixed_voxel_size: optional scalar or [B]; skips the search.
+      warm_start_size: optional scalar or [B]; seeds "fast"/"probe".
+
+    Returns (pcl [B, n, 3], covs [B, n, 9], labels [B, n] i32,
+    out_mask [B, n] bool, state: NDTResult).
+    """
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"points must be [B, N, 3], got {tuple(points.shape)}")
+    points = points.to(torch.float32)
+    b, n, _ = points.shape
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    if classes is None:
+        classes = torch.zeros((b, n), dtype=torch.int32, device=points.device)
+    classes = classes.to(torch.int32)
+    k_max = max_segments(n_desired)
+    px, py, pz = (points[..., a].contiguous() for a in range(3))
+    mins, maxs = _limits(px, py, pz, mask)
+    voxel_size, converged, presorted = _search(
+        px, py, pz, mask, classes, n_desired, mins, maxs,
+        num_class_slots > 1, search, fixed_voxel_size, warm_start_size,
+    )
+    state = _build_state(px, py, pz, mask, classes, num_class_slots,
+                         voxel_size, converged, mins, maxs, k_max,
+                         presorted=presorted)
+    pcl, covs, labels, out_mask = _emit(state, n_desired)
+    return pcl, covs, labels, out_mask, state
+
+
+def ndt_prune(state: NDTResult, n_out: int):
+    """Second-stage prune to a coarser resolution: the removed set is a
+    prefix of the same min-KL ranking, so this is the emit with a larger
+    to_remove."""
+    return _emit(state, n_out)

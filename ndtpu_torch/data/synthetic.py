@@ -1,0 +1,40 @@
+"""Synthetic point clouds from a seed (numpy only).
+
+Copies of the JAX package's two cloud generators, with the same RNG calls
+so a seed gives the same data: ``make_batch`` is bench.py's canonical
+serving batch (600 Gaussian clusters in a 40 m cube) and
+``example_cloud`` is ``__graft_entry__._example_cloud`` (32 clusters,
+each cloud of the batch scaled by 1 + 0.05 b).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_batch(batch: int, n_points: int, seed: int = 0) -> np.ndarray:
+    """[batch, n_points, 3] float32 clustered clouds."""
+    rng = np.random.default_rng(seed)
+    clouds = []
+    for _ in range(batch):
+        centers = rng.uniform(-20, 20, size=(600, 3))
+        per = n_points // 600 + 1
+        pts = (
+            (centers[:, None, :] + rng.normal(scale=0.4, size=(600, per, 3)))
+            .reshape(-1, 3)[:n_points]
+            .astype(np.float32)
+        )
+        clouds.append(pts)
+    return np.stack(clouds)
+
+
+def example_cloud(batch: int, n_points: int, seed: int = 0) -> np.ndarray:
+    """[batch, n_points, 3] float32: one clustered cloud, scaled per row."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-5, 5, size=(32, 3))
+    per = max(1, n_points // 32 + 1)
+    pts = (
+        (centers[:, None, :] + rng.normal(scale=0.25, size=(32, per, 3)))
+        .reshape(-1, 3)[:n_points]
+        .astype(np.float32)
+    )
+    return np.stack([pts * (1 + 0.05 * b) for b in range(batch)])

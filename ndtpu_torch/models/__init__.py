@@ -1,0 +1,8 @@
+"""Model families of the port (channels-last [B, N, C], ``nn.Linear`` for
+the reference's pointwise convolutions)."""
+from ndtpu_torch.models.ndtnet import (  # noqa: F401
+    AdditionalFeatures,
+    NDTNet,
+    NDTNetSegmentation,
+)
+from ndtpu_torch.models.tnet import TNet  # noqa: F401

@@ -1,0 +1,82 @@
+"""The port's package boundary and device rules.
+
+``ndtpu_torch`` imports torch and numpy, never jax, flax or ``ndtpu``
+(importing any ``ndtpu`` module runs ndtpu/__init__.py, which imports
+jax). Its entry points default to the card and raise where there is none,
+unless the caller asks for the CPU. chip_smoke.py follows the same rules.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "ndtpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ndtpu")
+
+
+def port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_no_jax():
+    for path in port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(len(bad), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from ndtpu_torch.core.ndt import empty_state
+    from ndtpu_torch.models import NDTNetSegmentation
+    from ndtpu_torch.serve import SegmentationPipeline, entry
+    from ndtpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (entry, lambda: SegmentationPipeline(32, 4, 32),
+                 lambda: NDTNetSegmentation(num_classes=4, feature_dim=32),
+                 lambda: empty_state(16), resolve_device):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Here there is no card: the script must exit non-zero and print no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
