@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ndtpu_torch serving path on one NVIDIA card and check it.
+"""Drive the ndtpu_torch serving and giant-cloud paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,7 @@ Phases, each of which ends the script with a non-zero exit on failure:
 
 1. The card: its name and power limit (nvidia-smi). TF32 is switched off
    for every comparison.
-2. The segment-moments kernel (the port of the Pallas kernel
+2. The segment-moments kernel (K1, the port of the Pallas kernel
    ``_moments_kernel``): built from ndtpu_torch/csrc at first use, held
    against its plain PyTorch version on random dense-rank inputs (slots 0
    and 29, three tag columns) and on the real sorted inputs of the
@@ -20,14 +21,28 @@ Phases, each of which ends the script with a non-zero exit on failure:
    CPU, then SegmentationPipeline(n_desired=1000, num_classes=28,
    feature_dim=768) answers 3 requests of 16 x 70000-point clouds. Each
    must give finite [16, 1000, 29] logits, every cloud converged with 1000
-   NDs, and exactly one kernel launch.
+   NDs, and exactly one K1 launch.
+4. The giant cloud (bench.py --giant): one 1,048,576-point cloud to 2080
+   NDs through make_point_sharded_downsample(search="probe") on a one-rank
+   NCCL group. K1 is held against its plain version on the moment pass's
+   real inputs (B = 1, slots = 1, two tag columns). The tags kernel (K3,
+   ``_tags_kernel``) and the segment sum kernel (K2, ``_kernel``) are held
+   against their plain versions on random inputs and on the cloud's real
+   sorted inputs, and timed like K1.
+   Then 5 timed downsamples, each converged, in band, 2080 NDs, finite,
+   with one K1 launch, one K3 launch per search evaluation plus one, and
+   the collectives of the JAX structure; the sharded moments against the
+   single-device segment_moments (K2) on the same sorted cloud; the
+   accepted size against the single-device fast search; a stage split;
+   and the second-stage ndt_prune to 1040.
 
-It prints the per-request latency, a ``{"kernels": [...]}`` line, the card
-line again, and last ``{"ok": true, "device": {...}}``. Without a card it
-exits non-zero and prints no result.
+It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
+and last ``{"ok": true, "device": {...}}``. Without a card it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -37,20 +52,31 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ndtpu_torch.core import ndt, voxel
-from ndtpu_torch.data.synthetic import example_cloud, make_batch
+from ndtpu_torch.core import moments, ndt, voxel
+from ndtpu_torch.core.kl import INT32_MAX
+from ndtpu_torch.data.synthetic import example_cloud, giant_cloud, make_batch
 from ndtpu_torch.ops import _build
 from ndtpu_torch.ops import segment_moments as sm
+from ndtpu_torch.parallel import mesh
+from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.serve import SegmentationPipeline
 
 B, N, M, C, F = 16, 70000, 1000, 28, 768
-K = ndt.max_segments(M) + 1          # kernel rows: segments + the drop row
+K = ndt.max_segments(M)              # kernel rows: k_max (ids >= K dropped)
 N_TAGS = 3
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TIMED_ITERS = 20
 LOGIT_ATOL, LOGIT_RTOL = 1e-3, 1e-4  # f32 matmuls on two devices
+
+GIANT_N, GIANT_M = 1_048_576, 2080   # bench.py --giant
+GIANT_K = ndt.max_segments(GIANT_M)  # k_max = 2504 table rows
+GIANT_RUNS = 5
+PAIR_TAGS = 4                        # 12-bit splits of the (zy, x) keys
+KERNELS = (sm.fused_moments_sorted, sm.segment_tags_sorted,
+           sm.segment_sum_sorted)
 
 
 def card_line() -> str:
@@ -83,7 +109,7 @@ def dense_rank_inputs(slots, seed):
     t = [torch.from_numpy(a).cuda() for a in (xt, yt, zt, v, cls, seg)]
     return dict(xt=t[0], yt=t[1], zt=t[2], v=t[3], cls=t[4] if slots else None,
                 seg=t[5], tags=[torch.from_numpy(a).cuda() for a in tags],
-                slots=slots)
+                slots=slots, k=K)
 
 
 def canonical_inputs(points):
@@ -100,20 +126,27 @@ def canonical_inputs(points):
         size0_override=seed,
     )
     lens, offsets = voxel.estimate_voxel_grid(mins, maxs, size)
-    inp = ndt._moment_inputs(cols, size, lens, offsets, K - 1, tagged=False)
+    inp = ndt._moment_inputs(cols, size, lens, offsets, K, tagged=False)
     return dict(xt=inp["xt"], yt=inp["yt"], zt=inp["zt"], v=inp["v"], cls=None,
-                seg=inp["seg"], tags=list(inp["tags"]), slots=0)
+                seg=inp["seg"], tags=list(inp["tags"]), slots=0, k=K)
 
 
 def run_kernel(x):
     return sm.fused_moments_sorted(x["xt"], x["yt"], x["zt"], x["v"], x["cls"],
-                                   x["seg"], K, x["slots"], tags=x["tags"])
+                                   x["seg"], x["k"], x["slots"], tags=x["tags"])
 
 
 def run_plain(x, dtype=torch.float32):
     f = [x[k].to(dtype) for k in ("xt", "yt", "zt", "v")]
-    return sm.fused_moments_sorted_plain(*f, x["cls"], x["seg"], K, x["slots"],
+    return sm.fused_moments_sorted_plain(*f, x["cls"], x["seg"], x["k"],
+                                         x["slots"],
                                          tags=[t.to(dtype) for t in x["tags"]])
+
+
+def k1_error_bound(x):
+    return sm.fused_moments_error_bound(x["xt"], x["yt"], x["zt"], x["v"],
+                                        x["cls"], x["seg"], x["k"], x["slots"],
+                                        tags=x["tags"])
 
 
 def check_kernel(x, label):
@@ -126,9 +159,7 @@ def check_kernel(x, label):
     b = run_kernel(x)
     ref = run_plain(x)
     ref64 = run_plain(x, torch.float64)
-    bound = sm.fused_moments_error_bound(x["xt"], x["yt"], x["zt"], x["v"],
-                                         x["cls"], x["seg"], K, x["slots"],
-                                         tags=x["tags"])
+    bound = k1_error_bound(x)
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"{label}: two launches differ")
@@ -165,18 +196,25 @@ def time_ms(fn, iters=TIMED_ITERS):
     return statistics.median(times)
 
 
-def k1_bound_ms(x):
-    """Least time for the kernel's work on this card: every input byte
-    read once and every output byte written once over the memory rate, or
-    the f32 operations over the f32 rate, whichever is larger."""
-    n_points = x["seg"].numel()
-    cols_in = 5 + len(x["tags"]) + (1 if x["slots"] else 0)
-    f_out = 13 + x["slots"] + len(x["tags"])
-    moved = 4 * (n_points * cols_in + x["seg"].shape[0] * K * f_out)
-    ops = n_points * (6 + 10 + len(x["tags"]) + x["slots"])  # products + sums
+def bound(n_points, bytes_per_point, out_bytes, ops):
+    """Least time for a kernel's work on this card: every input byte read
+    once and every output byte written once over the memory rate, or the
+    f32 operations over the f32 rate, whichever is larger. Returns (ms,
+    "bytes" or "operations", bytes)."""
+    moved = n_points * bytes_per_point + out_bytes
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", moved
+
+
+def k1_bound_ms(x):
+    """K1's bound: seg, xt, yt, zt, v (+ cls, + tags) per point, the
+    [B, K, 13 + slots + T] rows, 16 + T + slots products and sums a point."""
+    n_points = x["seg"].numel()
+    cols_in = 5 + len(x["tags"]) + (1 if x["slots"] else 0)
+    f_out = 13 + x["slots"] + len(x["tags"])
+    return bound(n_points, 4 * cols_in, 4 * x["seg"].shape[0] * x["k"] * f_out,
+                 n_points * (6 + 10 + len(x["tags"]) + x["slots"]))
 
 
 def library_call(x):
@@ -254,14 +292,14 @@ def small_batch_check():
           f"{float((lg - lc).abs().max()):.3e})")
 
 
-def count_syncs(pipe, points):
-    """Host syncs of one request, as torch's sync debug mode flags them."""
+def count_syncs(fn):
+    """Host syncs of fn(), as torch's sync debug mode flags them."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            pipe(points)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -276,7 +314,8 @@ def serve_phase():
     pipe(make_batch(B, N, seed=0))  # warm-up
     torch.cuda.synchronize()
     launches = sm.fused_moments_sorted
-    launches.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
     lat = []
     for i, pts in enumerate(requests):
         before = launches.launches
@@ -305,11 +344,394 @@ def serve_phase():
               f"(host), {B / dev_ms * 1e3:.1f} clouds/s, voxel sizes "
               f"{state.voxel_size.min().item():.4f}..{state.voxel_size.max().item():.4f}")
     n_launches = launches.launches
-    syncs = count_syncs(pipe, requests[0])
+    syncs = count_syncs(lambda: pipe(requests[0]))
     print(f"serve: median {statistics.median(lat):.3f} ms/request, "
           f"{B / statistics.median(lat) * 1e3:.1f} clouds/s, "
           f"{syncs} host syncs flagged per request")
     return n_launches
+
+
+# ---- the giant cloud ----
+
+def random_ranks(rng, dropped):
+    """[GIANT_N] dense sorted ranks over GIANT_K - 1 segments, the last
+    ``dropped`` rows given the dropped id GIANT_K."""
+    seg = np.zeros(GIANT_N, np.int32)
+    seg[rng.choice(GIANT_N - 1, size=GIANT_K - 2, replace=False) + 1] = 1
+    seg = np.cumsum(seg).astype(np.int32)
+    seg[GIANT_N - dropped:] = GIANT_K
+    return seg
+
+
+def sparse_tags(seg, n_tags, rng):
+    """Columns nonzero (< 2**12) only on each segment's first row."""
+    first = np.ones(seg.shape, bool)
+    first[1:] = seg[1:] != seg[:-1]
+    return [torch.from_numpy(np.where(first, rng.integers(0, 1 << 12, seg.shape),
+                                      0).astype(np.float32)).cuda()
+            for _ in range(n_tags)]
+
+
+def check_tags(seg, tags, label):
+    """K3 against its plain version on the card: exact (each kept segment
+    holds one nonzero per column), and two launches bit-identical."""
+    a = sm.segment_tags_sorted(seg, tags, GIANT_K)
+    b = sm.segment_tags_sorted(seg, tags, GIANT_K)
+    ref = sm.segment_tags_sorted_plain(seg, tags, GIANT_K)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"k3 {label}: two launches differ")
+    if not torch.equal(a, ref):
+        raise AssertionError(f"k3 {label}: differs from the plain version "
+                             f"by {float((a - ref).abs().max())}")
+    print(f"k3 {label}: ok, exact")
+    return 0.0
+
+
+def check_sum(feats, seg, label):
+    """K2 against its plain version on the card: every entry within twice
+    the kernel's f32 summation bound (``segment_sum_error_bound``) of the
+    plain version in float64, two launches bit-identical. Returns the
+    largest difference from the f32 plain version."""
+    a = sm.segment_sum_sorted(feats, seg, GIANT_K)
+    b = sm.segment_sum_sorted(feats, seg, GIANT_K)
+    ref = sm.segment_sum_sorted_plain(feats, seg, GIANT_K)
+    ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, GIANT_K)
+    tol = 2 * sm.segment_sum_error_bound(feats, seg, GIANT_K)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"k2 {label}: two launches differ")
+    if a.shape != ref.shape:
+        raise AssertionError(f"k2 {label}: shape {tuple(a.shape)}")
+    excess = (a.double() - ref64).abs() - tol
+    if bool((excess > 0).any()):
+        raise AssertionError(f"k2 {label}: off by {float(excess.max())} "
+                             "beyond the f32 summation bound")
+    err = float((a - ref).abs().max())
+    print(f"k2 {label}: ok, max_abs_err {err:.3e}")
+    return err
+
+
+def sorted_cloud(points, state):
+    """The cloud sorted by packed voxel key at the state's grid, as the
+    single-device oracle of tests/test_sharding.py builds it: sorted
+    points, their voxel centres, dense segment ranks (GIANT_K beyond the
+    table), and the (z, y, x) table padded with INT32_MAX."""
+    size, lens, offsets = state.voxel_size, state.lens[0], state.offsets[0]
+    coords, _ = voxel.metric_to_voxel_space(points, size, lens, offsets)
+    key, order = torch.sort(voxel.voxel_pos_to_index(coords, lens), stable=True)
+    coords = coords[order]
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    seg = torch.clamp(torch.cumsum(new, 0) - 1, max=GIANT_K).to(torch.int32)
+    table = torch.full((GIANT_K, 3), INT32_MAX, dtype=torch.int32,
+                       device=points.device)
+    starts = coords[new].flip(-1)[:GIANT_K]
+    table[:starts.shape[0]] = starts
+    return (points[order], voxel.voxel_to_metric_space(coords, size, offsets),
+            seg, table)
+
+
+def segment_reduce_call(data, seg):
+    """torch.segment_reduce over [N, F] rows for ids < GIANT_K (sorted, so
+    the dropped ids are the tail): the yardstick of K2 and K3."""
+    keep = seg < GIANT_K
+    lengths = torch.bincount(seg[keep].long(), minlength=GIANT_K)
+    rows = data[:int(keep.sum())]
+    return lambda: torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)
+
+
+def giant_k1_inputs(points, state):
+    """K1's inputs in the moment pass at the state's grid (one rank:
+    B = 1, slots = 1, the two 12-bit tag columns of the voxel keys)."""
+    mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
+    cls = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
+    x = ps._moment_inputs(points, mask, state.voxel_size, state.lens[0],
+                          state.offsets[0], GIANT_K, cls)
+    return dict(x, tags=list(x["tags"]), slots=1, k=GIANT_K)
+
+
+def giant_kernels(points, state):
+    """Hold K1 against its plain version on the moment pass's real inputs;
+    build K3 and K2, hold them against their plain versions on random and
+    on the giant cloud's real inputs, time them at the real shapes.
+    Returns (K1's max_abs_err here, [K3 line, K2 line])."""
+    k1_err = check_kernel(giant_k1_inputs(points, state),
+                          "giant moment pass (B=1, slots=1, T=2)")
+    rng = np.random.default_rng(7)
+    seg = torch.from_numpy(random_ranks(rng, 5000)).cuda()
+    k3_err = check_tags(seg, sparse_tags(seg.cpu().numpy(), PAIR_TAGS, rng),
+                        "random, 5000 dropped")
+    k2_err = max(check_sum(torch.from_numpy(rng.normal(size=(GIANT_N, f)).astype(
+        np.float32)).cuda(), seg, f"random F={f}") for f in (14, 42))
+
+    # real K3 inputs: the sorted (zy, x) pair keys at the accepted size,
+    # as the search's last count builds them
+    mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
+    cols = ps._sorted_pair_cols(points, mask, state.voxel_size, state.lens[0],
+                                state.offsets[0])
+    tseg, tags, _ = ps._table_inputs(cols, GIANT_K)
+    k3_err = max(k3_err, check_tags(tseg, tags, "giant pair keys"))
+    # real K2 inputs: the [N, 14] moment columns of the sorted cloud
+    pts, centres, mseg, _ = sorted_cloud(points, state)
+    cls = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
+    feats = moments.moment_features(pts, centres, classes=cls,
+                                    num_class_slots=1)
+    k2_err = max(k2_err, check_sum(feats, mseg, "giant moment columns"))
+
+    out = []
+    for name, line, err, call, plain, data, seg_, width in (
+        ("segment_tags_sorted", 403, k3_err,
+         lambda: sm.segment_tags_sorted(tseg, tags, GIANT_K),
+         lambda: sm.segment_tags_sorted_plain(tseg, tags, GIANT_K),
+         torch.stack(tags, -1), tseg, PAIR_TAGS),
+        ("segment_sum_sorted", 56, k2_err,
+         lambda: sm.segment_sum_sorted(feats, mseg, GIANT_K),
+         lambda: sm.segment_sum_sorted_plain(feats, mseg, GIANT_K),
+         feats, mseg, feats.shape[-1]),
+    ):
+        lib = segment_reduce_call(data, seg_)
+        if not torch.equal(lib()[:, 0], plain()[:, 0]):  # integer column
+            raise AssertionError(f"{name}: yardstick disagrees with the plain version")
+        # per kept point its `width` f32 columns (the ids are read only
+        # by each block's binary search, a few hundred loads), the
+        # [GIANT_K, width] rows written, one add per column
+        kept = int((seg_ < GIANT_K).sum())
+        bound_ms, bound_by, moved = bound(kept, 4 * width,
+                                          4 * GIANT_K * width, kept * width)
+        ms, plain_ms, library_ms = time_ms(call), time_ms(plain), time_ms(lib)
+        print(f"{name} giant: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({moved / 1e6:.2f} MB by {bound_by})")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "ndtpu_torch/csrc/segment_moments.cu",
+            "replaces": f"ndtpu/ops/pallas/segment_moments.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return k1_err, out
+
+
+class Collectives:
+    """Counts the torch.distributed collectives called inside the block,
+    by (name, shape)."""
+
+    def __enter__(self):
+        self.calls = collections.Counter()
+        self.saved = dist.all_gather, dist.all_reduce
+
+        def gather(parts, t, **kw):
+            self.calls["all_gather", tuple(t.shape)] += 1
+            return self.saved[0](parts, t, **kw)
+
+        def reduce(t, **kw):
+            self.calls["all_reduce", tuple(t.shape)] += 1
+            return self.saved[1](t, **kw)
+
+        dist.all_gather, dist.all_reduce = gather, reduce
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_gather, dist.all_reduce = self.saved
+
+
+def check_giant(out, label):
+    pcl, covs, labels, out_mask, state = out
+    if not bool(state.converged.all()):
+        raise AssertionError(f"{label}: not converged")
+    nv = int(state.num_valid[0])
+    if not GIANT_M <= nv <= int(GIANT_M * (1 + ndt.DOWNSAMPLE_UPPER_THRESHOLD)):
+        raise AssertionError(f"{label}: num_valid {nv} out of band")
+    if int(out_mask.sum()) != GIANT_M:
+        raise AssertionError(f"{label}: {int(out_mask.sum())} NDs kept")
+    if tuple(pcl.shape) != (GIANT_M, 3) or tuple(covs.shape) != (GIANT_M, 9):
+        raise AssertionError(f"{label}: shapes {tuple(pcl.shape)} {tuple(covs.shape)}")
+    if not (bool(torch.isfinite(pcl).all()) and bool(torch.isfinite(covs).all())):
+        raise AssertionError(f"{label}: non-finite outputs")
+    return nv
+
+
+def check_collectives(calls, k3, label):
+    """The JAX structure (tests/test_collectives.py): one [2, k_max] table
+    all-gather per search evaluation; in the moment pass one [k_max]
+    all-gather and one [k_max, 14] all-reduce; the [1, 6] limits reduce.
+    One K3 launch per evaluation plus the merge. Returns the evaluations."""
+    evals = calls["all_gather", (2, GIANT_K)]
+    want = collections.Counter({("all_gather", (2, GIANT_K)): evals,
+                                ("all_gather", (GIANT_K,)): 1,
+                                ("all_reduce", (1, 6)): 1,
+                                ("all_reduce", (GIANT_K, 14)): 1})
+    if evals < 1 or calls != want:
+        raise AssertionError(f"{label}: collectives {dict(calls)}")
+    if k3 != evals + 1:
+        raise AssertionError(f"{label}: {k3} K3 launches, {evals} evaluations")
+    return evals
+
+
+def giant_stages(points, group):
+    """The downsample's steps with a CUDA event between them (a stage
+    includes any wait of the card for the host)."""
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    torch.cuda.synchronize()
+    mark("start")
+    mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
+    classes = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
+    mins, maxs = ps.global_limits(points, mask, group)
+    mark("limits")
+    size, conv = ps.search_voxel_size(group, points, mask, mins, maxs, GIANT_M,
+                                      GIANT_K, "probe")
+    mark("search")
+    size, conv, lens, offsets = ps.accepted_grid(size, conv, mins, maxs)
+    mom = ps.sharded_segment_moments(group, points, mask, size, lens[0],
+                                     offsets[0], GIANT_K, 1, classes)
+    mark("moment pass")
+    state = ps.state_from_moments(mom, size, lens, offsets, conv)
+    mark("finalise + KL")
+    ndt._emit(state, GIANT_M)
+    mark("emit")
+    torch.cuda.synchronize()
+    return {name: marks[i][1].elapsed_time(e)
+            for i, (name, e) in enumerate(marks[1:])}
+
+
+def device_share(fn):
+    """torch.profiler over one fn(): (kernels, device busy ms, wall ms,
+    the 5 kernel names with the most device time and their ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us()
+            n += 1
+    top = [(k, v / 1e3) for k, v in by_name.most_common(5)]
+    return n, sum(by_name.values()) / 1e3, wall_us / 1e3, top
+
+
+def giant_phase():
+    """Returns (K1 launches, K1's max_abs_err at the giant shape, [K3 line,
+    K2 line]) of the giant path."""
+    t0 = time.perf_counter()
+    points = torch.from_numpy(giant_cloud(GIANT_N, seed=0)).cuda()
+    group = mesh.make_point_group("cuda")
+    try:
+        fn = ps.make_point_sharded_downsample(GIANT_M, group=group,
+                                              search="probe")
+        warm = fn(points)  # warm-up; its grid gives the kernels' real inputs
+        check_giant(warm, "giant warm-up")
+        k1_err, lines = giant_kernels(points, warm[4])
+
+        mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
+        classes = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
+        for kernel in KERNELS:
+            kernel.launches = 0
+        lat, evals = [], []
+        with Collectives() as coll:
+            for i in range(GIANT_RUNS):
+                coll.calls.clear()
+                k1, k3 = (sm.fused_moments_sorted.launches,
+                          sm.segment_tags_sorted.launches)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(points)
+                end.record()
+                end.synchronize()
+                lat.append(start.elapsed_time(end))
+                label = f"giant run {i}"
+                nv = check_giant(out, label)
+                if sm.fused_moments_sorted.launches - k1 != 1:
+                    raise AssertionError(f"{label}: K1 launched "
+                                         f"{sm.fused_moments_sorted.launches - k1} times")
+                evals.append(check_collectives(
+                    coll.calls, sm.segment_tags_sorted.launches - k3, label))
+                print(f"{label}: {lat[-1]:.3f} ms (events), voxel size "
+                      f"{float(out[4].voxel_size[0]):.6f}, num_valid {nv}, "
+                      f"{evals[-1]} search evaluations")
+            # the sharded moments at the accepted size against the
+            # single-device segment_moments (K2) on the same sorted cloud
+            state = out[4]
+            mom = ps.sharded_segment_moments(
+                group, points, mask, state.voxel_size, state.lens[0],
+                state.offsets[0], GIANT_K, 1, classes)
+            pts, centres, seg, table = sorted_cloud(points, state)
+            ref = moments.segment_moments(pts, centres, seg, GIANT_K,
+                                          classes=classes, num_class_slots=1)
+        launches = [k.launches for k in KERNELS]
+        want = [GIANT_RUNS + 1, sum(evals) + GIANT_RUNS + 1, 1]
+        if launches != want:
+            raise AssertionError(f"giant path launches {launches} (K1, K3, K2),"
+                                 f" expected {want}")
+
+        for name in ("counts", "class_hist"):
+            if not torch.equal(mom[name], ref[name]):
+                raise AssertionError(f"giant oracle: {name} differ")
+        if not torch.equal(mom["table"], table):
+            raise AssertionError("giant oracle: voxel tables differ")
+        # atol 2e-4 as tests/test_sharding.py, plus twice both kernels'
+        # f32 summation bounds (K1 and K2 sum in different orders): a voxel
+        # here holds up to ~1800 points and its sum of x~x~' reaches
+        # thousands, where one f32 ulp is ~5e-4. One rank: K1's local rows
+        # are the table's rows.
+        feats = moments.moment_features(pts, centres, classes=classes,
+                                        num_class_slots=1)
+        tol = 2e-4 + 2 * (k1_error_bound(giant_k1_inputs(points, state))[:, :14]
+                          + sm.segment_sum_error_bound(feats, seg, GIANT_K))
+        got = torch.cat([mom["sum_shift"], mom["sum_outer"].reshape(-1, 9)], 1)
+        want_ = torch.cat([ref["sum_shift"], ref["sum_outer"].reshape(-1, 9)], 1)
+        diff = (got - want_).abs()
+        if bool((diff.double() > tol[:, 1:13]).any()):
+            raise AssertionError(f"giant oracle: sums differ by {float(diff.max())}")
+        print(f"giant oracle: counts, table exact; sums max diff "
+              f"{float(diff.max()):.3e} (entries beyond 2e-4: "
+              f"{int((diff > 2e-4).sum())} of {diff.numel()})")
+
+        single = ndt.ndt_downsample(points[None], GIANT_M, search="fast")[4]
+        d = abs(float(single.voxel_size[0]) - float(state.voxel_size[0]))
+        if d >= 1e-6:
+            raise AssertionError(f"giant: accepted size differs from the "
+                                 f"single-device fast search by {d}")
+
+        syncs = count_syncs(lambda: fn(points))
+        stages = [giant_stages(points, group) for _ in range(GIANT_RUNS)]
+        split = {k: statistics.median(r[k] for r in stages) for k in stages[0]}
+        n_kernels, busy_ms, wall_ms, top = device_share(lambda: fn(points))
+        prune = ndt.ndt_prune(state, GIANT_M // 2)
+        if int(prune[3].sum()) != GIANT_M // 2:
+            raise AssertionError("giant prune: wrong kept count")
+        prune_ms = time_ms(lambda: ndt.ndt_prune(state, GIANT_M // 2))
+    finally:
+        mesh.release_point_group()
+    med = statistics.median(lat)
+    print(f"giant: median {med:.3f} ms/cloud ({1e3 / med:.2f} clouds/s, "
+          f"{GIANT_N / med / 1e3:.2f} Mpts/s) over {GIANT_RUNS} runs; "
+          f"{syncs} host syncs flagged per downsample; voxel size matches the "
+          f"single-device fast search (diff {d:.2e})")
+    print("giant stages (median of 5, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"giant profile: {n_kernels} kernels, device busy {busy_ms:.3f} ms "
+          f"of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}); most "
+          "device time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    print(f"giant prune to {GIANT_M // 2}: {prune_ms:.4f} ms (events)")
+    print(f"giant launches (K1, K3, K2): {launches}; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    lines[0]["launches"], lines[1]["launches"] = launches[1], launches[2]
+    return launches[0], k1_err, lines
 
 
 def main() -> int:
@@ -324,7 +746,10 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     k1 = k1_phase()
     k1["launches"] = serve_phase()
-    print(json.dumps({"kernels": [k1]}))
+    k1_giant, k1_giant_err, k3_k2 = giant_phase()
+    k1["launches"] += k1_giant
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_giant_err)
+    print(json.dumps({"kernels": [k1] + k3_k2}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,13 @@
 
 Each point contributes (1, x~, x~x~^T, onehot(class)) to its voxel's
 accumulator, x~ = x - voxel_center; finalisation gives the reference's
-biased estimators (normal_distributions.c:82-103). The hot path
-(``segment_moments_soa``) goes through the hand-written CUDA kernel on the
-card (ops/segment_moments.py) and its plain version on the CPU.
-Leading batch dims are allowed throughout.
+biased estimators (normal_distributions.c:82-103). Both reductions go
+through the port's hand-written CUDA kernels on the card
+(ops/segment_moments.py) and their plain versions on the CPU: the hot path
+``segment_moments_soa`` through the fused moments kernel, and
+``segment_moments`` through the generic sorted segment sum, as the JAX
+package routes them under ``use_pallas=True``. The tensor's device picks
+the route; there is no switch. Leading batch dims are allowed throughout.
 """
 from __future__ import annotations
 
@@ -14,29 +17,39 @@ import torch
 
 from ndtpu_torch.ops.segment_moments import (
     fused_moments_sorted,
-    segment_sum_sorted_plain,
+    segment_sum_sorted,
 )
 
 
-def segment_moments(points, centers, seg_ids, num_segments, valid=None,
-                    classes=None, num_class_slots=0):
-    """Accumulate per-segment Gaussian moments (plain PyTorch; the JAX
-    package's Pallas route for this function is a later slice).
-
-    points/centers [..., N, 3]; seg_ids [..., N] in [0, K) (K dropped);
-    valid [..., N] bool; classes [..., N] int in [0, num_class_slots).
-    Returns {counts [..., K] int32, sum_shift [..., K, 3],
-    sum_outer [..., K, 3, 3], class_hist [..., K, C] int32 if classes}."""
+def moment_features(points, centers, valid=None, classes=None,
+                    num_class_slots=0):
+    """The per-point rows [..., N, 13 (+ C)] that ``segment_moments`` sums:
+    [1, x~ (3), x~x~^T (9), onehot(class) (C)], zero where not valid."""
     x = points - centers
     outer = x[..., :, None] * x[..., None, :]
     parts = [torch.ones_like(x[..., :1]), x, outer.reshape(x.shape[:-1] + (9,))]
     if classes is not None:
-        parts.append(torch.nn.functional.one_hot(
-            classes.long(), num_class_slots).to(points.dtype))
+        slots = torch.arange(num_class_slots, device=points.device)
+        parts.append((classes[..., None].long() == slots).to(points.dtype))
     feats = torch.cat(parts, dim=-1)
     if valid is not None:
         feats = torch.where(valid[..., None], feats, 0.0)
-    acc = segment_sum_sorted_plain(feats, seg_ids, num_segments)
+    return feats
+
+
+def segment_moments(points, centers, seg_ids, num_segments, valid=None,
+                    classes=None, num_class_slots=0):
+    """Accumulate per-segment Gaussian moments (the sorted segment sum
+    kernel on the card).
+
+    points/centers [..., N, 3] f32; seg_ids [..., N] sorted per leading
+    index, in [0, K) (ids >= K dropped); valid [..., N] bool; classes
+    [..., N] int in [0, num_class_slots). Returns {counts [..., K] int32,
+    sum_shift [..., K, 3], sum_outer [..., K, 3, 3], class_hist
+    [..., K, C] int32 if classes}."""
+    feats = moment_features(points, centers, valid, classes, num_class_slots)
+    acc = segment_sum_sorted(feats, seg_ids.to(torch.int32).contiguous(),
+                             num_segments)
     out = {
         "counts": torch.round(acc[..., 0]).to(torch.int32),
         "sum_shift": acc[..., 1:4],
@@ -63,8 +76,8 @@ def segment_moments_soa(xt, yt, zt, v, seg_ids, num_segments, classes=None,
     acc = fused_moments_sorted(
         xt, yt, zt, v,
         classes.to(torch.int32) if classes is not None else None,
-        seg_ids.to(torch.int32), num_segments + 1, slots, tags=tags,
-    )[..., :num_segments, :]
+        seg_ids.to(torch.int32), num_segments, slots, tags=tags,
+    )
     out = {
         "counts": torch.round(acc[..., 0]).to(torch.int32),
         "sum_shift": acc[..., 1:4],

@@ -198,33 +198,104 @@ def _ingest(guess, count, lo, hi, best_g, best_c, n_desired, upper):
             torch.where(better, count, best_c))
 
 
-def _search_voxel_size(px, py, pz, mask, n_desired, mins, maxs, lo_min):
+def _secant_step(g, cf, pg, pc, lo, hi, target):
+    """The next size of the secant searches from this evaluation (size g,
+    count cf) and the previous one (pg, pc; pg = 0 when none): the
+    log-log step to the band's centre with the occupancy exponent measured
+    from the two (the surface prior 2 when no usable pair exists), or the
+    bracket's midpoint where the step leaves (lo, hi)."""
+    dlog_c = torch.log(torch.clamp(cf, min=1.0) / torch.clamp(pc, min=1.0))
+    dlog_g = torch.log(torch.where(pg > 0, pg, 1.0) / g)
+    usable = (pg > 0) & (dlog_g.abs() > 1e-6) & (dlog_c.abs() > 1e-6)
+    alpha = torch.where(usable, dlog_c / dlog_g, 2.0).clamp(0.5, 4.0)
+    secant = g * torch.pow(torch.clamp(cf, min=1.0) / target, 1.0 / alpha)
+    inside = (secant > lo) & (secant < hi)
+    return torch.where(inside, secant, lo + (hi - lo) / 2.0)
+
+
+def _point_count(px, py, pz, mask):
+    """The searches' ``count_fn`` over a batch of clouds [B, N]: the
+    occupied counts [B'] of the clouds ``idx`` at sizes [B']."""
+    def count(idx, size, mins, maxs):
+        return _count_occupied(px[idx], py[idx], pz[idx], mask[idx], size,
+                               mins, maxs)
+    return count
+
+
+def _search_voxel_size(n_desired, mins, maxs, lo_min, count_fn):
     """The C bisection (ndt.c:136-187), batched: start at (MAX-MIN)/2,
     shrink [lo, hi] until the count lands in [n, 1.2n] or 15 counts pass;
     an unconverged cloud keeps the smallest count >= n seen. The lower
     bound is clamped to ``lo_min`` [B], the envelope where counts are
-    exact. Returns (voxel_size [B] f32, converged [B] bool)."""
-    b = px.shape[0]
-    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
+    exact. ``count_fn(idx, size, mins, maxs)`` gives the occupied counts
+    [B'] of the clouds ``idx`` still searching, at their sizes, mins and
+    maxs (``_point_count``, or the point-sharded path's collective
+    count). Returns (voxel_size [B] f32, converged [B] bool)."""
+    b = mins.shape[0]
+    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), mins)
     lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
     hi = torch.clamp(lo, min=MAX_VOXEL_GUESS)
     guess = torch.clamp(lo, min=(MAX_VOXEL_GUESS - MIN_VOXEL_GUESS) / 2.0)
-    done = torch.zeros(b, dtype=torch.bool, device=px.device)
+    done = torch.zeros(b, dtype=torch.bool, device=mins.device)
     best_g = torch.zeros_like(lo)
-    best_c = torch.full((b,), _BIG_COUNT, dtype=torch.int64, device=px.device)
+    best_c = torch.full((b,), _BIG_COUNT, dtype=torch.int64,
+                        device=mins.device)
     for _ in range(MAX_GUESS_ITERATIONS):
         idx = torch.nonzero(~done).squeeze(-1)  # the round's host sync
         if idx.numel() == 0:
             break
         g = guess[idx]
-        count = _count_occupied(px[idx], py[idx], pz[idx], mask[idx], g,
-                                mins[idx], maxs[idx])
+        count = count_fn(idx, g, mins[idx], maxs[idx])
         hit, l, h, best_g[idx], best_c[idx] = _ingest(
             g, count, lo[idx], hi[idx], best_g[idx], best_c[idx], n_desired,
             upper)
         lo[idx], hi[idx] = l, h
         guess[idx] = torch.where(hit, g, l + (h - l) / 2.0)
         done[idx] = hit
+    have_best = best_c < _BIG_COUNT
+    final = torch.where(done, guess, torch.where(have_best, best_g, guess))
+    return final, done
+
+
+def _search_voxel_size_fast(n_desired, mins, maxs, count_fn, lo_min=None):
+    """The seeded log-log secant search without the payload sort (the JAX
+    package's unfused ``_search_voxel_size_fast``), batched. Evaluation 0
+    is at the geometric-mean seed, each later one at ``_secant_step``.
+    At most MAX_GUESS_ITERATIONS evaluations; an unconverged cloud returns
+    the smallest-count-above-n size seen, else its next guess. Unlike
+    ``_search_and_sort_fast`` (the same steps) no evaluation is forced to
+    the fallback size. ``count_fn`` as for ``_search_voxel_size``;
+    ``lo_min`` [B] optionally raises the lower bound. Returns
+    (voxel_size [B] f32, converged [B] bool)."""
+    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), mins)
+    target = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD / 2.0), mins)
+    size0, _, _ = vx.estimate_voxel_size(n_desired, mins, maxs)
+    lo = torch.full_like(size0, MIN_VOXEL_GUESS)
+    if lo_min is not None:
+        lo = torch.maximum(lo, lo_min)
+    hi = torch.clamp(lo, min=MAX_VOXEL_GUESS)
+    guess = torch.minimum(torch.maximum(torch.nan_to_num(size0, nan=1.0), lo),
+                          hi)
+    done = torch.zeros_like(guess, dtype=torch.bool)
+    best_g = torch.zeros_like(guess)
+    best_c = torch.full(guess.shape, _BIG_COUNT, dtype=torch.int64,
+                        device=guess.device)
+    prev_g = torch.zeros_like(guess)
+    prev_c = torch.zeros_like(guess)
+    for _ in range(MAX_GUESS_ITERATIONS):
+        idx = torch.nonzero(~done).squeeze(-1)  # the round's host sync
+        if idx.numel() == 0:
+            break
+        g, pg, pc = guess[idx], prev_g[idx], prev_c[idx]
+        count = count_fn(idx, g, mins[idx], maxs[idx])
+        cf = count.float()
+        hit, l, h, best_g[idx], best_c[idx] = _ingest(
+            g, count, lo[idx], hi[idx], best_g[idx], best_c[idx], n_desired,
+            upper)
+        nxt = _secant_step(g, cf, pg, pc, l, h, target)
+        lo[idx], hi[idx], done[idx] = l, h, hit
+        prev_g[idx], prev_c[idx] = g, cf
+        guess[idx] = torch.where(hit, g, nxt)
     have_best = best_c < _BIG_COUNT
     final = torch.where(done, guess, torch.where(have_best, best_g, guess))
     return final, done
@@ -316,16 +387,7 @@ def _search_and_sort_fast(px, py, pz, mask, classes, n_desired, mins, maxs,
         g, l, h = guess[idx], lo[idx], hi[idx]
         bg, bc, pg, pc, cf = (best_g[idx], best_c[idx], prev_g[idx],
                               prev_c[idx], countf[idx])
-        # measured occupancy exponent from the last two evaluations;
-        # surface prior (2) when no usable pair exists
-        dlog_c = torch.log(torch.clamp(cf, min=1.0) / torch.clamp(pc, min=1.0))
-        dlog_g = torch.log(torch.where(pg > 0, pg, 1.0) / g)
-        usable = (pg > 0) & (dlog_g.abs() > 1e-6) & (dlog_c.abs() > 1e-6)
-        alpha = torch.where(usable, dlog_c / dlog_g, 2.0).clamp(0.5, 4.0)
-        ratio = torch.clamp(cf, min=1.0) / target
-        secant = g * torch.pow(ratio, 1.0 / alpha)
-        inside = (secant > l) & (secant < h)
-        nxt = torch.where(inside, secant, l + (h - l) / 2.0)
+        nxt = _secant_step(g, cf, pg, pc, l, h, target)
         if it >= MAX_GUESS_ITERATIONS:
             nxt = torch.where(bc < _BIG_COUNT, bg, nxt)
         sub = _sort_payload_at(px[idx], py[idx], pz[idx], mask[idx],
@@ -475,8 +537,8 @@ def _search(px, py, pz, mask, classes, n_desired, mins, maxs, tagged, search,
     # exact C trajectory with the pair count, then clamped into the build
     # envelope; a binding clamp is reported as unconverged
     voxel_size, converged = _search_voxel_size(
-        px, py, pz, mask, n_desired, mins, maxs,
-        _min_pair_packable_voxel_size(mins, maxs),
+        n_desired, mins, maxs, _min_pair_packable_voxel_size(mins, maxs),
+        _point_count(px, py, pz, mask),
     )
     clamped = torch.maximum(voxel_size, envelope)
     return clamped, converged & (clamped <= voxel_size), None

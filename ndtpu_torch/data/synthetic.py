@@ -1,10 +1,11 @@
 """Synthetic point clouds from a seed (numpy only).
 
-Copies of the JAX package's two cloud generators, with the same RNG calls
-so a seed gives the same data: ``make_batch`` is bench.py's canonical
-serving batch (600 Gaussian clusters in a 40 m cube) and
-``example_cloud`` is ``__graft_entry__._example_cloud`` (32 clusters,
-each cloud of the batch scaled by 1 + 0.05 b).
+Copies of the JAX package's cloud generators, with the same RNG calls so
+a seed gives the same data: ``make_batch`` is bench.py's canonical serving
+batch (600 Gaussian clusters in a 40 m cube), ``example_cloud`` is
+``__graft_entry__._example_cloud`` (32 clusters, each cloud of the batch
+scaled by 1 + 0.05 b) and ``giant_cloud`` is bench.py's giant cloud (4096
+clusters in an 80 m cube).
 """
 from __future__ import annotations
 
@@ -38,3 +39,16 @@ def example_cloud(batch: int, n_points: int, seed: int = 0) -> np.ndarray:
         .astype(np.float32)
     )
     return np.stack([pts * (1 + 0.05 * b) for b in range(batch)])
+
+
+def giant_cloud(n_points: int = 1_048_576, seed: int = 0) -> np.ndarray:
+    """[n_points, 3] float32: bench.py's ``--giant`` cloud, 4096 Gaussian
+    clusters (sigma 0.5 m) with centres uniform in +-40 m."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-40, 40, size=(4096, 3))
+    per = n_points // 4096 + 1
+    return (
+        (centers[:, None, :] + rng.normal(scale=0.5, size=(4096, per, 3)))
+        .reshape(-1, 3)[:n_points]
+        .astype(np.float32)
+    )

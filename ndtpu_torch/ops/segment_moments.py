@@ -1,15 +1,25 @@
-"""Fused NDT segment-moment reduction: CUDA kernel, plain version, wrapper.
+"""Sorted segment reductions: CUDA kernels, plain versions, wrappers.
 
-Port of ``ndtpu/ops/pallas/segment_moments.py::fused_moments_sorted`` (the
-TPU kernel ``_moments_kernel``). The kernel is
-``ndtpu_torch/csrc/segment_moments.cu``; its header says how it is laid out
-and what bounds it on an H100. ``fused_moments_sorted`` launches it for
-CUDA tensors and runs ``fused_moments_sorted_plain`` only for CPU tensors.
+Ports of the three Pallas kernels of
+``ndtpu/ops/pallas/segment_moments.py``:
+
+- ``fused_moments_sorted`` (TPU kernel ``_moments_kernel``, K1): the NDT
+  Gaussian moments from compact per-point columns;
+- ``segment_tags_sorted`` (``_tags_kernel``, K3): sparse per-segment tag
+  columns, the point-sharded distinct-voxel tables;
+- ``segment_sum_sorted`` (``_kernel``, K2): the generic sorted segment sum.
+
+The kernels are ``ndtpu_torch/csrc/segment_moments.cu``; its comments say
+how each is laid out and what bounds it on an H100. Each wrapper checks
+its inputs, launches its kernel on the current stream for CUDA tensors
+(counting the launch in its ``launches`` attribute) and runs its plain
+version only for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -17,6 +27,7 @@ from ndtpu_torch.ops import _build
 
 SOURCE = "segment_moments.cu"
 MAX_TAGS = 8  # NDTPU_MAX_TAGS in the source
+SUM_BLOCK = 256  # kBlock in the source: threads per segment of the sum kernel
 N_MOMENTS = 13
 
 
@@ -76,18 +87,68 @@ def fused_moments_error_bound(xt, yt, zt, v, cls, seg_ids, num_segments: int,
     return (torch.ceil(rows / 32) + 6) * 2.0**-24 * mag
 
 
+def segment_tags_sorted_plain(seg_ids, tags, num_segments: int):
+    """Plain version of the tags kernel: [N] ids, T [N] columns ->
+    [num_segments, T] sums (ids outside [0, num_segments) dropped)."""
+    return segment_sum_sorted_plain(torch.stack(tuple(tags), dim=-1), seg_ids,
+                                    num_segments)
+
+
+def segment_sum_error_bound(feats, seg_ids, num_segments: int):
+    """Bound on the sum kernel's f32 rounding error, per output entry (f64).
+
+    In a tile of w columns (tiles of 32) the kernel's block of SUM_BLOCK
+    threads sums g = SUM_BLOCK // w row groups of ceil(L / g) terms each,
+    in order, then adds the g partial sums, so to first order
+    |kernel - exact| <= (ceil(L / g) + g) * 2**-24 * sum|terms| for a
+    segment of L rows; the bound adds one more term for slack."""
+    f = feats.shape[-1]
+    width = torch.tensor([min(32, f - 32 * (c // 32)) for c in range(f)],
+                         dtype=torch.float64, device=feats.device)
+    groups = torch.floor(SUM_BLOCK / width)
+    mag = segment_sum_sorted_plain(feats.double().abs(), seg_ids, num_segments)
+    rows = segment_sum_sorted_plain(
+        torch.ones_like(feats[..., :1], dtype=torch.float64), seg_ids,
+        num_segments)
+    return (torch.ceil(rows / groups) + groups + 1) * 2.0**-24 * mag
+
+
+def _bind(name, argtypes):
+    fn = getattr(_build.load(SOURCE), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
 @functools.cache
 def _kernel():
-    """Build (at first use) and bind the kernel's C entry point."""
-    fn = _build.load(SOURCE).ndtpu_segment_moments
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6                  # seg, xt, yt, zt, v, cls
-        + [ctypes.POINTER(ctypes.c_void_p)]    # tag column pointers
-        + [ctypes.c_int] * 5                   # n_tags, batch, n, K, slots
-        + [ctypes.c_void_p, ctypes.c_void_p]   # out, stream
-    )
-    return fn
+    """Build (at first use) and bind the moments kernel's C entry point."""
+    return _bind("ndtpu_segment_moments",
+                 [ctypes.c_void_p] * 6                  # seg, xt, yt, zt, v, cls
+                 + [ctypes.POINTER(ctypes.c_void_p)]    # tag column pointers
+                 + [ctypes.c_int] * 5                   # n_tags, batch, n, K, slots
+                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
+
+
+@functools.cache
+def _tags_kernel():
+    return _bind("ndtpu_segment_tags",
+                 [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]  # seg, tags
+                 + [ctypes.c_int] * 3                   # n_tags, n, K
+                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
+
+
+@functools.cache
+def _sum_kernel():
+    return _bind("ndtpu_segment_sum",
+                 [ctypes.c_void_p, ctypes.c_void_p]     # seg, feats
+                 + [ctypes.c_int] * 4                   # batch, n, F, K
+                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _check(name, t, dtype, shape, device):
@@ -103,10 +164,12 @@ def _check(name, t, dtype, shape, device):
 
 def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
     n = seg_ids.shape[-1]
-    batch = seg_ids.numel() // max(n, 1)
-    out = torch.empty(tuple(seg_ids.shape[:-1])
-                      + (num_segments, N_MOMENTS + slots + len(tags)),
-                      dtype=torch.float32, device=seg_ids.device)
+    batch = math.prod(seg_ids.shape[:-1])
+    shape = (tuple(seg_ids.shape[:-1])
+             + (num_segments, N_MOMENTS + slots + len(tags)))
+    if n * batch * num_segments == 0:  # nothing to sum: no launch
+        return torch.zeros(shape, dtype=torch.float32, device=seg_ids.device)
+    out = torch.empty(shape, dtype=torch.float32, device=seg_ids.device)
     tag_ptrs = (ctypes.c_void_p * max(1, len(tags)))(
         *[t.data_ptr() for t in tags]
     )
@@ -116,8 +179,7 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
         v.data_ptr(), cls.data_ptr() if slots else None, tag_ptrs,
         len(tags), batch, n, num_segments, slots, out.data_ptr(), stream,
     )
-    if err != 0:
-        raise RuntimeError(f"segment_moments kernel launch failed: CUDA error {err}")
+    _raise_on(err, "segment_moments")
     fused_moments_sorted.launches += 1
     return out
 
@@ -163,3 +225,82 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
 
 
 fused_moments_sorted.launches = 0
+
+
+def _device_of(seg_ids):
+    dev = seg_ids.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def segment_tags_sorted(seg_ids, tags, num_segments: int):
+    """Sparse per-segment tag columns by sorted segment rank.
+
+    seg_ids: [N] int32, non-decreasing (dense ranks; ids >= num_segments
+    dropped). tags: 1..8 [N] f32 columns with at most one nonzero per
+    segment (then every sum is exact). Returns [num_segments, T] f32. One
+    kernel launch on CUDA tensors; the plain version on CPU tensors."""
+    tags = tuple(tags)
+    if seg_ids.dim() != 1:
+        raise ValueError(f"seg_ids must be [N], got {tuple(seg_ids.shape)}")
+    if not 1 <= len(tags) <= MAX_TAGS:
+        raise ValueError(f"1 to {MAX_TAGS} tag columns, got {len(tags)}")
+    if num_segments < 0:
+        raise ValueError("num_segments must be >= 0")
+    shape, dev = tuple(seg_ids.shape), _device_of(seg_ids)
+    _check("seg_ids", seg_ids, torch.int32, shape, dev)
+    for i, t in enumerate(tags):
+        _check(f"tags[{i}]", t, torch.float32, shape, dev)
+    if dev.type == "cpu":
+        return segment_tags_sorted_plain(seg_ids, tags, num_segments)
+    if shape[0] * num_segments == 0:  # nothing to sum: no launch
+        return torch.zeros((num_segments, len(tags)), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((num_segments, len(tags)), dtype=torch.float32,
+                      device=dev)
+    ptrs = (ctypes.c_void_p * len(tags))(*[t.data_ptr() for t in tags])
+    err = _tags_kernel()(seg_ids.data_ptr(), ptrs, len(tags), shape[0],
+                         num_segments, out.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "segment_tags")
+    segment_tags_sorted.launches += 1
+    return out
+
+
+segment_tags_sorted.launches = 0
+
+
+def segment_sum_sorted(feats, seg_ids, num_segments: int):
+    """Segment sum of ``feats`` [..., N, F] f32 by sorted segment rank
+    ``seg_ids`` [..., N] int32 (non-decreasing per leading index; ids >=
+    num_segments dropped) into [..., num_segments, F]. One kernel launch
+    for all leading dims on CUDA tensors, in a fixed summation order (see
+    ``segment_sum_error_bound``); the plain version on CPU tensors."""
+    if feats.dim() < 2 or feats.dim() != seg_ids.dim() + 1:
+        raise ValueError(f"feats [..., N, F] and seg_ids [..., N], got "
+                         f"{tuple(feats.shape)} and {tuple(seg_ids.shape)}")
+    if feats.shape[-1] < 1:
+        raise ValueError("feats needs at least one column")
+    if num_segments < 0:
+        raise ValueError("num_segments must be >= 0")
+    shape, dev = tuple(seg_ids.shape), _device_of(seg_ids)
+    _check("seg_ids", seg_ids, torch.int32, shape, dev)
+    _check("feats", feats, torch.float32, shape + (feats.shape[-1],), dev)
+    if dev.type == "cpu":
+        return segment_sum_sorted_plain(feats, seg_ids, num_segments)
+    n, f = feats.shape[-2:]
+    batch = math.prod(shape[:-1])
+    out_shape = shape[:-1] + (num_segments, f)
+    if n * batch * num_segments == 0:  # nothing to sum: no launch
+        return torch.zeros(out_shape, dtype=torch.float32, device=dev)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    err = _sum_kernel()(seg_ids.data_ptr(), feats.data_ptr(), batch, n, f,
+                        num_segments, out.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "segment_sum")
+    segment_sum_sorted.launches += 1
+    return out
+
+
+segment_sum_sorted.launches = 0

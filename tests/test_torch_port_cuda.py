@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-Needs an NVIDIA card and nvcc (the kernel is built at first use); every
+Needs an NVIDIA card and nvcc (the kernels are built at first use); every
 test here skips without a card. This file imports neither jax nor
 ``ndtpu``, so it runs on a machine that has only the port's dependencies:
 
@@ -12,6 +12,8 @@ import torch
 
 from ndtpu_torch.core.ndt import ndt_downsample
 from ndtpu_torch.ops import segment_moments as sm
+from ndtpu_torch.parallel import mesh
+from ndtpu_torch.parallel.point_sharded import make_point_sharded_downsample
 
 
 @pytest.fixture
@@ -101,3 +103,112 @@ def test_downsample_on_card_matches_cpu(cuda):
         assert torch.equal(getattr(gpu[4], name).cpu(), getattr(cpu[4], name)), name
     torch.testing.assert_close(gpu[4].means.cpu(), cpu[4].means, rtol=1e-5,
                                atol=1e-5)
+
+
+def sparse_tags(seg, n_tags, rng):
+    first = np.ones(seg.shape, bool)
+    first[1:] = seg[1:] != seg[:-1]
+    return [np.where(first, rng.integers(0, 1 << 12, seg.shape), 0)
+            .astype(np.float32) for _ in range(n_tags)]
+
+
+def ranks(n, k, dropped, rng):
+    seg = np.zeros(n, np.int32)
+    seg[rng.choice(n - 1, size=k - 1, replace=False) + 1] = 1
+    seg = np.cumsum(seg).astype(np.int32)
+    if dropped:
+        seg[-dropped:] = k
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,n_tags,dropped", [
+    (200000, 2504, 4, 5000), (3000, 3000, 1, 0), (5000, 1, 8, 0),
+    (100, 40, 2, 60),
+])
+def test_segment_tags_kernel_matches_plain(cuda, n, k, n_tags, dropped):
+    rng = np.random.default_rng(n + n_tags)
+    seg = torch.from_numpy(ranks(n, k, dropped, rng)).to(cuda)
+    tags = [torch.from_numpy(t).to(cuda) for t in sparse_tags(seg.cpu().numpy(),
+                                                              n_tags, rng)]
+    before = sm.segment_tags_sorted.launches
+    out = sm.segment_tags_sorted(seg, tags, k)
+    again = sm.segment_tags_sorted(seg, tags, k)
+    torch.cuda.synchronize()
+    assert sm.segment_tags_sorted.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out, sm.segment_tags_sorted_plain(seg, tags, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,k,f,dropped", [
+    ((), 300000, 2100, 14, 0), ((), 20000, 500, 42, 9), ((2,), 5000, 64, 33, 7),
+    ((), 1000, 1, 1, 0), ((3,), 37, 30, 16, 0),
+])
+def test_segment_sum_kernel_matches_plain(cuda, lead, n, k, f, dropped):
+    rng = np.random.default_rng(n + f)
+    seg = np.stack([ranks(n, k, dropped, rng)
+                    for _ in range(int(np.prod(lead)))]).reshape(lead + (n,))
+    seg = torch.from_numpy(seg).to(cuda)
+    feats = torch.from_numpy(rng.normal(size=lead + (n, f))
+                             .astype(np.float32)).to(cuda)
+    before = sm.segment_sum_sorted.launches
+    out = sm.segment_sum_sorted(feats, seg, k)
+    again = sm.segment_sum_sorted(feats, seg, k)
+    torch.cuda.synchronize()
+    assert sm.segment_sum_sorted.launches == before + 2
+    assert torch.equal(out, again)  # a fixed summation order
+    ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, k)
+    bound = sm.segment_sum_error_bound(feats, seg, k)
+    assert bool(((out.double() - ref64).abs() <= 2 * bound).all())
+
+
+@pytest.mark.cuda
+def test_kernels_on_empty_inputs_return_zeros_without_a_launch(cuda):
+    """No rows (N = 0) or no segments: zeros like the plain versions, and
+    no launch counted."""
+    counts = [k.launches for k in (sm.fused_moments_sorted,
+                                   sm.segment_tags_sorted,
+                                   sm.segment_sum_sorted)]
+    for n, k in ((0, 5), (4, 0)):
+        col = torch.zeros((2, n), device=cuda)
+        seg = torch.zeros((2, n), dtype=torch.int32, device=cuda)
+        out = sm.fused_moments_sorted(col, col, col, col, None, seg, k, 0,
+                                      tags=[col])
+        assert torch.equal(out, torch.zeros((2, k, 14), device=cuda))
+        out = sm.segment_tags_sorted(seg[0], [col[0]], k)
+        assert torch.equal(out, torch.zeros((k, 1), device=cuda))
+        out = sm.segment_sum_sorted(col[..., None], seg, k)
+        assert torch.equal(out, torch.zeros((2, k, 1), device=cuda))
+    assert [k.launches for k in (sm.fused_moments_sorted,
+                                 sm.segment_tags_sorted,
+                                 sm.segment_sum_sorted)] == counts
+
+
+@pytest.mark.cuda
+def test_giant_downsample_nccl_matches_gloo_cpu(cuda):
+    """The point-sharded downsample on a one-rank NCCL group on the card,
+    against a one-rank gloo group on the CPU: the same integer outputs;
+    one K1 launch and one K3 launch per search evaluation plus the merge."""
+    rng = np.random.default_rng(7)
+    centres = rng.uniform(-20, 20, size=(300, 1, 3))
+    pts = (centres + rng.normal(scale=0.5, size=(300, 70, 3))).reshape(-1, 3)
+    pts = torch.from_numpy(pts.astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        group = mesh.make_point_group(dev)
+        try:
+            k1 = sm.fused_moments_sorted.launches
+            k3 = sm.segment_tags_sorted.launches
+            out[dev] = make_point_sharded_downsample(200, group=group)(
+                pts.to(dev))
+            if dev == "cuda":
+                assert sm.fused_moments_sorted.launches == k1 + 1
+                assert sm.segment_tags_sorted.launches >= k3 + 2
+        finally:
+            mesh.release_point_group()
+    gpu, cpu = out["cuda"], out["cpu"]
+    for name in ("voxel_size", "num_valid", "counts", "zyx", "converged"):
+        assert torch.equal(getattr(gpu[4], name).cpu(), getattr(cpu[4], name)), name
+    assert torch.equal(gpu[3].cpu(), cpu[3])
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
