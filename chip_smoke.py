@@ -14,9 +14,10 @@ Phases, each of which ends the script with a non-zero exit on failure:
    and 29, three tag columns) and on the real sorted inputs of the
    canonical batch (taken from the port's own search-and-sort stage),
    checked bit-identical across two launches, and timed with CUDA events
-   at the canonical size beside the plain version and one PyTorch
+   at the canonical size beside the plain version, one PyTorch
    yardstick call (``torch.segment_reduce`` over the materialised
-   columns; the port never calls it).
+   columns; the port never calls it) and a read floor (``torch.sum``
+   over as many bytes as the bound counts, under the same L2 flush).
 3. Serving: a small batch on the card against the same pipeline on the
    CPU, then SegmentationPipeline(n_desired=1000, num_classes=28,
    feature_dim=768) answers 3 requests of 16 x 70000-point clouds. Each
@@ -25,7 +26,8 @@ Phases, each of which ends the script with a non-zero exit on failure:
 4. The giant cloud (bench.py --giant): one 1,048,576-point cloud to 2080
    NDs through make_point_sharded_downsample(search="probe") on a one-rank
    NCCL group. K1 is held against its plain version on the moment pass's
-   real inputs (B = 1, slots = 1, two tag columns). The tags kernel (K3,
+   real inputs (B = 1, slots = 1, two tag columns) and timed there. The
+   tags kernel (K3,
    ``_tags_kernel``) and the segment sum kernel (K2, ``_kernel``) are held
    against their plain versions on random inputs and on the cloud's real
    sorted inputs, and timed like K1.
@@ -196,6 +198,15 @@ def time_ms(fn, iters=TIMED_ITERS):
     return statistics.median(times)
 
 
+def read_floor_ms(nbytes):
+    """time_ms of torch.sum over a contiguous f32 buffer of nbytes: one
+    launch that only reads a kernel's bytes, under the same L2 flush (the
+    flush leaves the L2 dirty, so a cold read here runs well below the
+    card's 3.35 TB/s)."""
+    buf = torch.ones(max(1, nbytes // 4), dtype=torch.float32, device="cuda")
+    return time_ms(buf.sum)
+
+
 def bound(n_points, bytes_per_point, out_bytes, ops):
     """Least time for a kernel's work on this card: every input byte read
     once and every output byte written once over the memory rate, or the
@@ -208,12 +219,14 @@ def bound(n_points, bytes_per_point, out_bytes, ops):
 
 
 def k1_bound_ms(x):
-    """K1's bound: seg, xt, yt, zt, v (+ cls, + tags) per point, the
-    [B, K, 13 + slots + T] rows, 16 + T + slots products and sums a point."""
-    n_points = x["seg"].numel()
+    """K1's bound: seg, xt, yt, zt, v (+ cls, + tags) per kept point (id <
+    K; the kernel reads no dropped point), the [B, K, 13 + slots + T] rows,
+    16 + T + slots products and sums a point."""
+    n_points = int((x["seg"] < x["k"]).sum())
+    batch = x["seg"].numel() // x["seg"].shape[-1]
     cols_in = 5 + len(x["tags"]) + (1 if x["slots"] else 0)
     f_out = 13 + x["slots"] + len(x["tags"])
-    return bound(n_points, 4 * cols_in, 4 * x["seg"].shape[0] * x["k"] * f_out,
+    return bound(n_points, 4 * cols_in, 4 * batch * x["k"] * f_out,
                  n_points * (6 + 10 + len(x["tags"]) + x["slots"]))
 
 
@@ -222,26 +235,46 @@ def library_call(x):
     for ids < K (the real inputs have no dropped id)."""
     feats = sm.moment_columns(x["xt"], x["yt"], x["zt"], x["v"], x["cls"],
                               x["slots"], x["tags"])
-    b = x["seg"].shape[0]
-    ids = x["seg"].long() + K * torch.arange(b, device="cuda")[:, None]
-    lengths = torch.bincount(ids.reshape(-1), minlength=b * K)
+    k = x["k"]
+    seg = x["seg"].reshape(-1, x["seg"].shape[-1])
+    b = seg.shape[0]
+    ids = seg.long() + k * torch.arange(b, device="cuda")[:, None]
+    lengths = torch.bincount(ids.reshape(-1), minlength=b * k)
     data = feats.reshape(-1, feats.shape[-1])
 
     def call():
         return torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
 
-    if not bool((x["seg"] < K).all()):
+    if not bool((seg < k).all()):
         raise AssertionError("yardstick needs ids < K")
     # same segments and layout: the integer columns (counts, tags) are
     # exact in any summation order
     exact = [0] + list(range(13, feats.shape[-1]))
-    if not torch.equal(call().reshape(b, K, -1)[..., exact],
-                       run_plain(x)[..., exact]):
+    if not torch.equal(call().reshape(b, k, -1)[..., exact],
+                       run_plain(x).reshape(b, k, -1)[..., exact]):
         raise AssertionError("yardstick disagrees with the plain version")
     return call
 
 
+def k1_times(x, label):
+    """K1's time at x beside its plain version, the segment_reduce
+    yardstick and its bound: the timing keys of a kernels-line entry."""
+    ms = time_ms(lambda: run_kernel(x))
+    plain_ms = time_ms(lambda: run_plain(x))
+    library_ms = time_ms(library_call(x))
+    bound_ms, bound_by, moved = k1_bound_ms(x)
+    floor_ms = read_floor_ms(moved)
+    print(f"k1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({moved / 1e6:.2f} MB by {bound_by}), read floor {floor_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "read_floor_ms": floor_ms}
+
+
 def k1_phase():
+    """Build K1, check it on random and canonical inputs, time it at the
+    canonical batch. Returns its kernels-line entry without launches."""
     t0 = time.perf_counter()
     lib = _build.build(sm.SOURCE)
     print(f"k1 build: {lib.name} in {time.perf_counter() - t0:.2f} s")
@@ -250,20 +283,11 @@ def k1_phase():
     points = torch.from_numpy(make_batch(B, N, seed=0)).cuda()
     real = canonical_inputs(points)
     errs.append(check_kernel(real, "canonical sorted inputs"))
-    ms = time_ms(lambda: run_kernel(real))
-    plain_ms = time_ms(lambda: run_plain(real))
-    library_ms = time_ms(library_call(real))
-    bound_ms, bound_by, moved = k1_bound_ms(real)
-    print(f"k1 canonical: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({moved / 1e6:.2f} MB by {bound_by})")
     return {
         "name": "segment_moments", "route": "cuda",
         "source": "ndtpu_torch/csrc/segment_moments.cu",
         "replaces": "ndtpu/ops/pallas/segment_moments.py:190",
-        "launches": None, "max_abs_err": max(errs), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "max_abs_err": max(errs), **k1_times(real, "canonical"),
     }
 
 
@@ -452,12 +476,14 @@ def giant_k1_inputs(points, state):
 
 
 def giant_kernels(points, state):
-    """Hold K1 against its plain version on the moment pass's real inputs;
-    build K3 and K2, hold them against their plain versions on random and
-    on the giant cloud's real inputs, time them at the real shapes.
-    Returns (K1's max_abs_err here, [K3 line, K2 line])."""
-    k1_err = check_kernel(giant_k1_inputs(points, state),
-                          "giant moment pass (B=1, slots=1, T=2)")
+    """Hold K1 against its plain version on the moment pass's real inputs
+    and time it there; build K3 and K2, hold them against their plain
+    versions on random and on the giant cloud's real inputs, time them at
+    the real shapes. Returns (K1's max_abs_err here, K1's timing keys
+    there, [K3 entry, K2 entry] without launches)."""
+    k1_x = giant_k1_inputs(points, state)
+    k1_err = check_kernel(k1_x, "giant moment pass (B=1, slots=1, T=2)")
+    k1_giant = k1_times(k1_x, "giant moment pass")
     rng = np.random.default_rng(7)
     seg = torch.from_numpy(random_ranks(rng, 5000)).cuda()
     k3_err = check_tags(seg, sparse_tags(seg.cpu().numpy(), PAIR_TAGS, rng),
@@ -500,18 +526,19 @@ def giant_kernels(points, state):
         bound_ms, bound_by, moved = bound(kept, 4 * width,
                                           4 * GIANT_K * width, kept * width)
         ms, plain_ms, library_ms = time_ms(call), time_ms(plain), time_ms(lib)
+        floor_ms = read_floor_ms(moved)
         print(f"{name} giant: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({moved / 1e6:.2f} MB by {bound_by})")
+              f"({moved / 1e6:.2f} MB by {bound_by}), read floor {floor_ms:.4f} ms")
         out.append({
             "name": name, "route": "cuda",
             "source": "ndtpu_torch/csrc/segment_moments.cu",
             "replaces": f"ndtpu/ops/pallas/segment_moments.py:{line}",
-            "launches": None, "max_abs_err": err, "ms": ms,
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "read_floor_ms": floor_ms,
         })
-    return k1_err, out
+    return k1_err, k1_giant, out
 
 
 class Collectives:
@@ -624,8 +651,8 @@ def device_share(fn):
 
 
 def giant_phase():
-    """Returns (K1 launches, K1's max_abs_err at the giant shape, [K3 line,
-    K2 line]) of the giant path."""
+    """Returns (K1 launches, K1's max_abs_err and timing keys at the giant
+    shape, [K3 entry, K2 entry] with their launches) of the giant path."""
     t0 = time.perf_counter()
     points = torch.from_numpy(giant_cloud(GIANT_N, seed=0)).cuda()
     group = mesh.make_point_group("cuda")
@@ -634,7 +661,7 @@ def giant_phase():
                                               search="probe")
         warm = fn(points)  # warm-up; its grid gives the kernels' real inputs
         check_giant(warm, "giant warm-up")
-        k1_err, lines = giant_kernels(points, warm[4])
+        k1_err, k1_giant, lines = giant_kernels(points, warm[4])
 
         mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
         classes = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
@@ -731,7 +758,7 @@ def giant_phase():
     print(f"giant launches (K1, K3, K2): {launches}; phase took "
           f"{time.perf_counter() - t0:.1f} s")
     lines[0]["launches"], lines[1]["launches"] = launches[1], launches[2]
-    return launches[0], k1_err, lines
+    return launches[0], k1_err, k1_giant, lines
 
 
 def main() -> int:
@@ -745,10 +772,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     k1 = k1_phase()
-    k1["launches"] = serve_phase()
-    k1_giant, k1_giant_err, k3_k2 = giant_phase()
-    k1["launches"] += k1_giant
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1_giant_err)
+    served = serve_phase()
+    giant_launches, giant_err, giant_times, k3_k2 = giant_phase()
+    # K1's launches on both main paths; its giant-shape times ride along
+    k1["launches"] = served + giant_launches
+    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err)
+    k1["giant"] = giant_times
     print(json.dumps({"kernels": [k1] + k3_k2}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

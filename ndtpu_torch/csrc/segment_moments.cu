@@ -1,27 +1,58 @@
-// Sorted segment reductions over dense sorted segment ranks: the three
-// Pallas kernels of ndtpu/ops/pallas/segment_moments.py, for sm_90a.
+// Sorted segment reductions over sorted segment ranks: the three Pallas
+// kernels of ndtpu/ops/pallas/segment_moments.py, for sm_90a.
 //
 //   ndtpu_segment_moments  <- _moments_kernel (entry fused_moments_sorted)
 //   ndtpu_segment_tags     <- _tags_kernel    (entry segment_tags_sorted)
 //   ndtpu_segment_sum      <- _kernel         (entry segment_sum_sorted)
 //
 // Precondition (as for the TPU kernels): each cloud's ids are sorted
-// (non-decreasing; the pipeline gives dense ranks with unit steps), so
-// segment s is the contiguous run that starts at lower_bound(seg, s). Ids
-// >= num_segments are dropped and never read past the binary search: the
-// callers pass only the rows they keep, so the points of a dropped row (at
-// the search's early guesses nearly the whole cloud) cost nothing.
+// (non-decreasing; the pipeline gives dense ranks with unit steps, gaps are
+// allowed), so segment s is the contiguous run that starts at
+// lower_bound(seg, s). Ids >= num_segments are dropped and never summed:
+// the callers pass only the rows they keep, so the points of a dropped row
+// (at the search's early guesses nearly the whole cloud) cost nothing.
 //
-// Common design. Each output row (segment) is reduced by one warp (K1) or
-// one block (K2, K3) that finds the run by a 33-way warp search. Its
-// threads stride the run in a fixed order, and a fixed shfl tree and a
-// fixed loop over shared memory combine them. Nothing is shared between
-// warps of different rows, there are no atomics, and the summation order
-// depends only on the run's length, so results are bit-identical from
-// launch to launch. The TPU kernels' one-hot matmuls on the MXU and their
-// block/sub-block/sublane windows exist for the TPU's matrix unit and VMEM
-// and are not carried over. All three are bound by bytes on an H100
-// (3.35 TB/s): each does a few f32 additions per value it reads.
+// All three are bound by bytes on an H100 (3.35 TB/s): each does a few f32
+// additions per value it reads. A first port gave each segment a warp
+// (K1) or a block (K3) that found its run by a search and walked it from
+// device memory: a chain of dependent loads per segment, and one warp
+// walking the longest run (1782 points in the giant cloud) alone.
+//
+// K1 and K3: chunks of points streamed through shared memory. The grid has
+// one block per chunk of a cloud's points (range_plan sizes the chunks so
+// the call has about kTargetBlocks blocks, ~3 per SM). A block owns the
+// segments whose first point lies in its chunk [c0, c1) (an empty segment
+// belongs to the chunk that holds the point where it would start), so
+// every segment has one owner whatever the run lengths: no carries between
+// blocks, no second pass, no atomics, one launch per call. Three ids of
+// the chunk (before it, at its start, at its end) give the owned segments
+// [s_lo, s_hi); two warps find their points [p0, p1) with one galloping
+// warp search each (p0 is c0 unless the previous chunk's last run reaches
+// into the chunk; p1 lies one run past c1): two or three dependent loads
+// per block, no search per segment. A chunk in the dropped tail owns
+// nothing and reads nothing more. The block then streams [p0, p1) through
+// shared memory in tiles (256 to 1024 points, at most kStageBytes of
+// columns), two stages deep: 16-byte cp.async copies of every column the
+// kernel reads (tile starts aligned down to 16 B per column, the ragged
+// edges masked by the index range), the next tile's copies in flight while
+// the current one is reduced. Each tile's run starts come from the staged
+// ids, compacted in order by a ballot per warp; a gap in the ids writes
+// the empty rows in between. The tiles start at p0, after the searches,
+// not speculatively at c0: the previous run's tail before p0 is a tenth
+// of a chunk at the giant cloud, and with the L2 flushed the bytes, not
+// the searches, set the time (PERF.md).
+//
+// Summation order (both kernels). The runs of a block go to its warps in
+// turn (run r to warp r mod kRangeWarps). Lane l adds the points of its run
+// whose offset from the run's first point is l modulo 32, in index order;
+// a run that crosses a tile edge keeps its partial sums in the warp's
+// registers. The lanes are then combined by warp_reduce_scatter: 5
+// additions on every term's path, in a fixed pattern. The order depends
+// only on the run: not on the chunks, the tiles or the launch, so two
+// launches are bit-identical. Each lane adds at most ceil(L / 32) terms of
+// a run of L points (the error bounds in ops/segment_moments.py follow
+// from that). Class histograms (K1, slots > 0) go to per-lane private
+// columns in shared memory, summed over lanes in lane order.
 //
 // Every entry returns cudaGetLastError() after its launch (0 = success) and
 // launches on the stream it is given.
@@ -33,20 +64,66 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // K1: one warp per segment
-constexpr int kBlock = 256;        // K2, K3: one block per segment
-constexpr int kMoments = 13;
+constexpr int kBlock = 256;  // K2: one block per segment
 
-struct TagPtrs {
-  const float* p[NDTPU_MAX_TAGS];
+// K1, K3: the chunk kernels (the Python mirror is range_plan in
+// ops/segment_moments.py). Chosen on the H100 at the serving and giant
+// shapes from a sweep of warps per block (4, 8, 16), stage sizes (8 to
+// 64 KB) and blocks per call (128 to 1536).
+constexpr int kRangeWarps = 4;
+constexpr int kRangeThreads = kRangeWarps * 32;
+constexpr int kStageBytes = 32 * 1024;  // a stage's columns, at most
+constexpr int kMinTile = 256, kMaxTile = 1024;
+constexpr int kMinChunk = 512, kChunkStep = 256;
+constexpr long long kTargetBlocks = 384;  // ~3 per SM of 132
+constexpr int kMoments = 13;
+// Values a warp's lane holds for one run: K1's 10 moment sums and 8 tags.
+constexpr int kLaneValues = kMoments - 3 + NDTPU_MAX_TAGS;
+
+// Column slots of a chunk kernel: 0 seg (int32), 1-4 xt, yt, zt, v,
+// 5-12 the tag columns, 13 cls (int32). A null pointer is a column the
+// kernel does not read; only the others take room in shared memory.
+constexpr int kSeg = 0, kXt = 1, kV = 4, kTag0 = 5, kCls = 13;
+constexpr int kMaxCols = 14;
+
+struct Cols {
+  const float* p[kMaxCols];
 };
+
+struct RangePlan {
+  int chunk;  // points per block
+  int tile;   // points per tile
+  long long blocks;
+  size_t smem;
+};
+
+// Chunk: the batch's points over kTargetBlocks, rounded up to a multiple of
+// kChunkStep, at least kMinChunk. Tile: the largest power of two in
+// [kMinTile, kMaxTile] whose n_cols columns fit kStageBytes. Shared memory:
+// two stages of n_cols columns of tile + 8 floats (the point before the
+// tile and the 16-byte edges), each warp's per-lane histograms, the tile's
+// run starts.
+RangePlan range_plan(int batch, int n, int n_cols, int slots) {
+  RangePlan plan;
+  const long long points = static_cast<long long>(batch) * n;
+  const long long per_block = (points + kTargetBlocks - 1) / kTargetBlocks;
+  const long long rounded = (per_block + kChunkStep - 1) / kChunkStep * kChunkStep;
+  plan.chunk = rounded < kMinChunk ? kMinChunk : static_cast<int>(rounded);
+  plan.tile = kMaxTile;
+  while (plan.tile > kMinTile && n_cols * plan.tile * 4 > kStageBytes)
+    plan.tile /= 2;
+  plan.blocks = static_cast<long long>(batch) * ((n + plan.chunk - 1) / plan.chunk);
+  plan.smem = sizeof(float) * (2 * static_cast<size_t>(n_cols) * (plan.tile + 8) +
+                               static_cast<size_t>(kRangeWarps) * slots * 32) +
+              sizeof(int) * plan.tile;
+  return plan;
+}
 
 // First index i in [lo, hi) with sg[i] >= s (hi if none), for sorted sg.
 // Called by all 32 lanes of a warp: each round probes 32 evenly spaced
 // positions and keeps the gap where the ids cross s (a ballot), so a
 // search over N ids takes about log_33(N) dependent loads (4 for a million
-// points) instead of log_2(N) (20): the searches, not the sums, set the
-// time of a kernel whose runs are a few hundred points long.
+// points) instead of log_2(N) (20).
 __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ sg,
                                                 int lo, int hi, long long s) {
   const int lane = threadIdx.x & 31;
@@ -62,6 +139,248 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ sg,
   return lo + __popc(__ballot_sync(0xffffffffu, i < hi && __ldg(sg + i) < s));
 }
 
+// The same, for an answer expected near lo: lane l probes lo + 2^l - 1, so
+// the first round brackets an answer d points away in a window of ~d / 2,
+// and warp_lower_bound finishes it (2 to 3 dependent loads for d < 1000).
+__device__ __forceinline__ int warp_gallop(const int* __restrict__ sg, int lo,
+                                           int hi, long long s) {
+  const int lane = threadIdx.x & 31;
+  const long long probe = lo + (1LL << lane) - 1;
+  const unsigned ge = __ballot_sync(
+      0xffffffffu, probe >= hi || __ldg(sg + probe) >= s);  // lane 31 >= hi
+  const int f = __ffs(ge) - 1;
+  if (f == 0) return lo;
+  return warp_lower_bound(sg, lo + (1 << (f - 1)),
+                          static_cast<int>(min(static_cast<long long>(hi), lo + (1LL << f) - 1)),
+                          s);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Halving steps of warp_reduce_scatter, from width W down to 1.
+template <int W, int S>
+__device__ __forceinline__ void halve(float (&v)[S], int lane) {
+  if constexpr (W >= 1) {
+    const bool upper = lane & W;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const float send = upper ? v[i] : v[i + W];
+      v[i] = (upper ? v[i + W] : v[i]) + __shfl_xor_sync(0xffffffffu, send, W);
+    }
+    halve<W / 2>(v, lane);
+  }
+}
+
+// Sums each of the S values of v over the warp's 32 lanes; lane l returns
+// the sum of value l mod S. The order is fixed: log2(S) halving steps (a
+// lane keeps one half of its values and adds its partner's copy of that
+// half), then butterfly levels over the lane bits left: 5 additions on
+// every term's path, S - 1 + log2(32 / S) shuffles (a tree per value
+// takes 5 S).
+template <int S>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[S]) {
+  halve<S / 2>(v, threadIdx.x & 31);
+  float total = v[0];
+#pragma unroll
+  for (int w = S; w < 32; w <<= 1)
+    total += __shfl_xor_sync(0xffffffffu, total, w);
+  return total;
+}
+
+// How many floats point lo of a column lies past its 16-byte chunk's start.
+__device__ __forceinline__ int lead_of(const float* col, int lo) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(col + lo) >> 2) & 3);
+}
+
+// Start the copies of points [lo, hi) of every column read into one stage
+// (hi - lo <= tile + 1). Column c's point g lands at
+// stage[slot(c) * (tile + 8) + lead_of(col c, lo) + g - lo]. A chunk at
+// the ragged edge may hold up to 3 floats outside [lo, hi), never outside
+// the 16-byte-aligned unit of a valid float (so never on an unmapped
+// page); the reduction reads only [lo, hi).
+__device__ __forceinline__ void issue_tile(const Cols& cols, long long base,
+                                           int lo, int hi, int col_floats,
+                                           float* stage) {
+  int slot = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    if (cols.p[c] == nullptr) continue;
+    const int lead = lead_of(cols.p[c] + base, lo);
+    const float* aligned = cols.p[c] + base + lo - lead;
+    const int chunks = (lead + (hi - lo) + 3) >> 2;
+    float* dst = stage + slot * col_floats;
+    for (int k = threadIdx.x; k < chunks; k += kRangeThreads)
+      cp_async16(dst + 4 * k, aligned + 4 * k);
+    ++slot;
+  }
+}
+
+// Output rows [from, to) of cloud b, zeroed by the threads i, i + stride, ...
+struct Rows {
+  float* out;
+  int f, num_segments;
+
+  __device__ __forceinline__ void zero(int b, int from, int to, int i,
+                                       int stride) const {
+    float* row = out + (static_cast<long long>(b) * num_segments + from) * f;
+    for (long long k = i; k < static_cast<long long>(to - from) * f; k += stride)
+      row[k] = 0.0f;
+  }
+};
+
+// The chunk kernels' common body (the note at the top of the file). Op:
+// reset() zeroes a warp's sums; add(stage, off, g) adds point g, whose
+// column c is stage[off[c] + g]; finish(b, s) combines the lanes and
+// writes row s of cloud b; rows is the output. Shared memory: the stages,
+// then op's histograms, then the tile's run starts.
+template <class Op>
+__device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
+                                             int chunk, int tile,
+                                             float* stages, int* runs,
+                                             const Rows& rows, Op& op) {
+  __shared__ int interval[2];
+  constexpr int kMaxRounds = kMaxTile / kRangeThreads;
+  __shared__ int starts_of[kMaxRounds][kRangeWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = rows.num_segments;
+  const int chunks = (n + chunk - 1) / chunk;
+  const int b = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x % chunks) * chunk;
+  const int c1 = min(c0 + chunk, n);
+  const long long base = static_cast<long long>(b) * n;
+  const int* sg = reinterpret_cast<const int*>(cols.p[kSeg]) + base;
+
+  // owned segments [s_lo, s_hi): those that start in [c0, c1)
+  const int before = c0 > 0 ? __ldg(sg + c0 - 1) : -1;
+  const int first = __ldg(sg + c0);
+  const int last = __ldg(sg + c1 - 1);
+  const int s_lo = c0 > 0 ? min(max(before + 1, 0), k) : 0;
+  const int s_hi = c1 < n ? min(max(last + 1, 0), k) : k;
+  if (s_lo >= s_hi) return;
+
+  int n_cols = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
+  const int col_floats = tile + 8;
+  const int stage_floats = n_cols * col_floats;
+  if (warp == 0) {
+    const int p = first > before && first >= s_lo ? c0
+                                                  : warp_gallop(sg, c0, n, s_lo);
+    if (lane == 0) interval[0] = p;
+  } else if (warp == 1) {
+    const int p = warp_gallop(sg, last < k ? c1 : c0, n, s_hi);
+    if (lane == 0) interval[1] = p;
+  }
+  __syncthreads();
+  const int p0 = interval[0], p1 = interval[1];
+  const int tiles = (p1 - p0 + tile - 1) / tile;
+  if (tiles > 0) issue_tile(cols, base, p0, min(p0 + tile, p1), col_floats, stages);
+  cp_async_commit();
+  const int rounds = tile / kRangeThreads;
+
+  int run_base = 0;  // runs that started in earlier tiles
+  int open_start = 0, open_id = 0;  // this warp's run across the tile edge
+  op.reset();
+  for (int t = 0; t < tiles; ++t) {
+    const int start = p0 + t * tile;
+    const int end = min(start + tile, p1);
+    if (t + 1 < tiles)  // the next tile, with the point before it
+      issue_tile(cols, base, end - 1, min(end + tile, p1), col_floats,
+                 stages + ((t + 1) & 1) * stage_floats);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile t has landed for every thread
+
+    const int lo = t == 0 ? p0 : start - 1;
+    const float* stage = stages + (t & 1) * stage_floats;
+    int off[kMaxCols];
+    int slot = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (cols.p[c] == nullptr) {
+        off[c] = 0;
+        continue;
+      }
+      off[c] = slot++ * col_floats + lead_of(cols.p[c] + base, lo) - lo;
+    }
+    const int* ids = reinterpret_cast<const int*>(stage) + off[kSeg];
+
+    // run starts of this tile, in order: in round i thread x looks at
+    // point start + i * kRangeThreads + x (neighbouring lanes, neighbouring
+    // words), a ballot per warp and a count per (round, warp) place them;
+    // a gap in the ids (from s_lo at p0) writes the empty rows in between
+    unsigned found[kMaxRounds];
+    int n_runs = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxRounds; ++i) {
+      const int g = start + i * kRangeThreads + threadIdx.x;
+      bool first_of_run = false;
+      if (i < rounds && g < end) {
+        const int prev = g == p0 ? s_lo - 1 : ids[g - 1];
+        first_of_run = g == p0 || ids[g] != prev;
+        if (first_of_run && ids[g] > prev + 1) rows.zero(b, prev + 1, ids[g], 0, 1);
+      }
+      found[i] = __ballot_sync(0xffffffffu, first_of_run);
+      if (lane == 0 && i < rounds) starts_of[i][warp] = __popc(found[i]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kMaxRounds; ++i) {
+      if (i >= rounds) break;
+      int pos = n_runs + __popc(found[i] & ((1u << lane) - 1u));
+#pragma unroll
+      for (int w = 0; w < kRangeWarps; ++w) {
+        pos += w < warp ? starts_of[i][w] : 0;
+        n_runs += starts_of[i][w];
+      }
+      if (found[i] >> lane & 1u) runs[pos] = start + i * kRangeThreads + threadIdx.x;
+    }
+    __syncthreads();  // the tile's runs are known
+
+    // runs run_base - 1 (open at the last tile's end; it may close here
+    // with no point) .. run_base + n_runs - 1
+    const int r_end = run_base + n_runs;
+    int r = t > 0 ? run_base - 1 : run_base;
+    for (r += (warp - r % kRangeWarps + kRangeWarps) % kRangeWarps; r < r_end;
+         r += kRangeWarps) {
+      const int st = r >= run_base ? runs[r - run_base] : open_start;
+      const int id = r >= run_base ? ids[st] : open_id;
+      const bool closes = r + 1 < r_end || end == p1;
+      const int to = r + 1 < r_end ? runs[r + 1 - run_base] : end;
+      const int a = max(st, start);
+      for (int g = a + ((st + lane - a) & 31); g < to; g += 32)
+        op.add(stage, off, g);
+      if (closes) {
+        op.finish(b, id);
+        op.reset();
+      } else {
+        open_start = st;
+        open_id = id;
+      }
+    }
+    run_base = r_end;
+    __syncthreads();  // the stage and the runs may be overwritten
+  }
+  cp_async_wait<0>();
+  // the empty rows after the last point (all of them if there is none)
+  rows.zero(b, p1 > p0 ? __ldg(sg + p1 - 1) + 1 : s_lo, s_hi, threadIdx.x,
+            kRangeThreads);
+}
+
 // ---- segment moments (K1) ----
 //
 // For each cloud b and segment s < num_segments it sums, over the points i
@@ -73,121 +392,120 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ sg,
 // (x, y, z = the voxel-center-shifted coordinates xt, yt, zt) into
 // out[b, s, :], F = 13 + slots + T columns. The whole batch is one launch
 // (the TPU kernel's custom_vmap rule). The row is built in registers from
-// the compact inputs; the [N, F] feature matrix never exists in device
-// memory.
+// the staged compact columns; the [N, F] feature matrix never exists in
+// device memory. The mirrored outer-product entries come from the same
+// sums and are bit-equal. Tag columns hold at most one nonzero per
+// segment, so their sums are exact.
 //
-// One warp per (cloud, segment): lane l sums points start + l,
-// start + l + 32, ... and a shfl_down tree combines the 32 partial sums.
-// The mirrored outer-product entries come from the same accumulators and
-// are bit-equal. Class histograms (slots > 0) go to per-lane private
-// columns in shared memory, summed over lanes in lane order. Tag columns
-// hold at most one nonzero per segment, so their sums are exact.
-//
-// Bound: each point is read once (seg, xt, yt, zt, v: 20 B, + 4 B cls when
-// slots > 0, + 4 B per tag); each output row is written once. At the
+// Bound: each kept point is read once (seg, xt, yt, zt, v: 20 B, + 4 B cls
+// when slots > 0, + 4 B per tag); each output row is written once. At the
 // serving shape (B=16, N=70000, num_segments=1209, slots=0, T=3) that is
 // 1.12 M points x 32 B + 16 x 1209 x 16 x 4 B ~ 37 MB, about 11 us at
-// 3.35 TB/s. The arithmetic (~25 f32 operations a point) is far below the
-// card's f32 rate.
+// 3.35 TB/s; the plan gives 3072-point chunks (368 blocks) and 1024-point
+// tiles there. Beyond the bound the kernel reads the point before each tile
+// again and the searches' few probes. The arithmetic (~25 f32 operations a
+// point) is far below the card's f32 rate.
 
-__global__ void segment_moments_kernel(
-    const int* __restrict__ seg, const float* __restrict__ xt,
-    const float* __restrict__ yt, const float* __restrict__ zt,
-    const float* __restrict__ v, const int* __restrict__ cls, TagPtrs tags,
-    int n_tags, int batch, int n, int num_segments, int slots,
-    float* __restrict__ out) {
-  extern __shared__ float hist_smem[];  // [warps][slots][32], slots > 0 only
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long task =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp;
-  if (task >= static_cast<long long>(batch) * num_segments) return;
-  const int b = static_cast<int>(task / num_segments);
-  const int s = static_cast<int>(task % num_segments);
-  const long long base = static_cast<long long>(b) * n;
-  const int* sg = seg + base;
-
-  const int start = warp_lower_bound(sg, 0, n, s);
-
+struct MomentsOp {
   float acc[kMoments - 3];  // v, x, y, z, xx, xy, xz, yy, yz, zz
-#pragma unroll
-  for (int j = 0; j < kMoments - 3; ++j) acc[j] = 0.0f;
   float tag_acc[NDTPU_MAX_TAGS];
-#pragma unroll
-  for (int t = 0; t < NDTPU_MAX_TAGS; ++t) tag_acc[t] = 0.0f;
+  float* hist;  // this warp's [slots][32] lane columns
+  int slots, n_tags;
+  Rows rows;
 
-  float* hist = hist_smem + static_cast<size_t>(warp) * slots * 32;
-  for (int c = 0; c < slots; ++c) hist[c * 32 + lane] = 0.0f;
-
-  // the run ends where the id changes; the warp stops at the first chunk
-  // of 32 with no point of this segment
-  for (int chunk = start;; chunk += 32) {
-    const int i = chunk + lane;
-    const bool in = i < n && __ldg(sg + i) == s;
-    if (!__any_sync(0xffffffffu, in)) break;
-    if (in) {
-      const long long gi = base + i;
-      const float x = __ldg(xt + gi), y = __ldg(yt + gi), z = __ldg(zt + gi);
-      const float w = __ldg(v + gi);
-      acc[0] += w;
-      acc[1] += x;
-      acc[2] += y;
-      acc[3] += z;
-      acc[4] += x * x;
-      acc[5] += x * y;
-      acc[6] += x * z;
-      acc[7] += y * y;
-      acc[8] += y * z;
-      acc[9] += z * z;
+  __device__ __forceinline__ void reset() {
 #pragma unroll
-      for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-        if (t < n_tags) tag_acc[t] += __ldg(tags.p[t] + gi);
-      if (slots > 0) {
-        const int c = __ldg(cls + gi);
-        if (c >= 0 && c < slots) hist[c * 32 + lane] += w;
+    for (int j = 0; j < kMoments - 3; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t) tag_acc[t] = 0.0f;
+    const int lane = threadIdx.x & 31;
+    for (int c = 0; c < slots; ++c) hist[c * 32 + lane] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const float* stage,
+                                      const int (&off)[kMaxCols], int g) {
+    const float x = stage[off[kXt] + g], y = stage[off[kXt + 1] + g],
+                z = stage[off[kXt + 2] + g], w = stage[off[kV] + g];
+    acc[0] += w;
+    acc[1] += x;
+    acc[2] += y;
+    acc[3] += z;
+    acc[4] += x * x;
+    acc[5] += x * y;
+    acc[6] += x * z;
+    acc[7] += y * y;
+    acc[8] += y * z;
+    acc[9] += z * z;
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
+      if (t < n_tags) tag_acc[t] += stage[off[kTag0 + t] + g];
+    if (slots > 0) {
+      const int c = __float_as_int(stage[off[kCls] + g]);
+      if (c >= 0 && c < slots) hist[c * 32 + (threadIdx.x & 31)] += w;
+    }
+  }
+
+  __device__ __forceinline__ void finish(int b, int s) {
+    if (n_tags <= 6)
+      combine<16>(b, s);
+    else
+      combine<32>(b, s);
+    if (slots > 0) {
+      const int lane = threadIdx.x & 31;
+      float* row = rows.out +
+                   (static_cast<long long>(b) * rows.num_segments + s) * rows.f;
+      __syncwarp();
+      for (int c = lane; c < slots; c += 32) {
+        float h = 0.0f;
+        for (int l = 0; l < 32; ++l) h += hist[c * 32 + l];
+        row[kMoments + c] = h;
       }
+      __syncwarp();  // read before the next reset clears it
     }
   }
 
-  // fixed reduction tree: lane 0 ends with the sum
+  // The 10 moment sums and the tags as S values (S = 16 holds 6 tags);
+  // lane j < 10 + n_tags writes value j.
+  template <int S>
+  __device__ __forceinline__ void combine(int b, int s) {
+    float v[S];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < kMoments - 3; ++j)
-      acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      tag_acc[t] += __shfl_down_sync(0xffffffffu, tag_acc[t], off);
-  }
-
-  const int f = kMoments + slots + n_tags;
-  float* row = out + (static_cast<long long>(b) * num_segments + s) * f;
-  if (lane == 0) {
-    row[0] = acc[0];
-    row[1] = acc[1];
-    row[2] = acc[2];
-    row[3] = acc[3];
-    row[4] = acc[4];   // xx
-    row[5] = acc[5];   // xy
-    row[6] = acc[6];   // xz
-    row[7] = acc[5];   // yx == xy
-    row[8] = acc[7];   // yy
-    row[9] = acc[8];   // yz
-    row[10] = acc[6];  // zx == xz
-    row[11] = acc[8];  // zy == yz
-    row[12] = acc[9];  // zz
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      if (t < n_tags) row[kMoments + slots + t] = tag_acc[t];
-  }
-  if (slots > 0) {
-    __syncwarp();
-    for (int c = lane; c < slots; c += 32) {
-      float h = 0.0f;
-      for (int l = 0; l < 32; ++l) h += hist[c * 32 + l];
-      row[kMoments + c] = h;
+    for (int j = 0; j < S; ++j) {
+      if (j < kMoments - 3)
+        v[j] = acc[j];
+      else if (j < kLaneValues)
+        v[j] = tag_acc[j - (kMoments - 3)];
+      else
+        v[j] = 0.0f;
+    }
+    const float total = warp_reduce_scatter(v);
+    const int j = threadIdx.x & 31;
+    float* row = rows.out +
+                 (static_cast<long long>(b) * rows.num_segments + s) * rows.f;
+    if (j < kMoments - 3) {
+      // v, x, y, z, xx, xy, xz, yy, yz, zz -> columns; xy, xz, yz twice
+      const int col = j < 7 ? j : j == 7 ? 8 : j == 8 ? 9 : 12;
+      row[col] = total;
+      if (j == 5 || j == 6 || j == 8) row[j == 5 ? 7 : j == 6 ? 10 : 11] = total;
+    } else if (j < kMoments - 3 + n_tags) {
+      row[kMoments + slots + j - (kMoments - 3)] = total;
     }
   }
+};
+
+__global__ void __launch_bounds__(kRangeThreads) segment_moments_kernel(
+    Cols cols, int n_tags, int n, int num_segments, int slots, int chunk,
+    int tile, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  int n_cols = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
+  // [stages][histograms][runs]
+  float* hist = smem + 2 * n_cols * (tile + 8);
+  const Rows rows = {out, kMoments + slots + n_tags, num_segments};
+  MomentsOp op{{}, {}, hist + (threadIdx.x >> 5) * slots * 32, slots, n_tags, rows};
+  reduce_chunk(cols, n, chunk, tile, smem,
+               reinterpret_cast<int*>(hist + kRangeWarps * slots * 32), rows, op);
 }
 
 // ---- sparse per-segment tags (K3) ----
@@ -196,53 +514,52 @@ __global__ void segment_moments_kernel(
 // s < num_segments and T <= 8 columns, one cloud (1-D, as the TPU entry).
 // The callers put at most one nonzero in a segment (12-bit splits of an
 // integer key on each run's first row), so every sum is exact in f32. The
-// kernel still sums the whole run in a fixed order, so it computes what
-// _tags_kernel computes also where that does not hold.
+// kernel still sums the whole run in the fixed order above, so it computes
+// what _tags_kernel computes also where that does not hold.
 //
-// One block of kBlock threads per segment (a warp per segment leaves the
-// longest run, ~1800 points in the giant cloud, to 32 lanes and sets the
-// kernel's time): the run is [lower_bound(s), lower_bound(s + 1)) (each
-// warp searches; the loads after the first warp's hit L1), thread
-// j sums points start + j, start + j + kBlock, ..., a shfl_down tree sums
-// each warp, and thread t adds the warps' sums for column t in warp order.
-//
-// Bound: seg and the T tags of every point of a kept segment read once
-// (4 + 4T B), the [num_segments, T] table written once. At the giant
-// cloud's accepted size (N = 1,048,576, T = 4, num_segments = 2504) that is
-// ~21 MB, about 6.3 us at 3.35 TB/s.
-__global__ void __launch_bounds__(kBlock) segment_tags_kernel(
-    const int* __restrict__ seg, TagPtrs tags, int n_tags, int n,
+// Bound: the T tags of every point of a kept segment read once (4T B), the
+// [num_segments, T] table written once. At the giant cloud's accepted size
+// (N = 1,048,576, T = 4, num_segments = 2504) that is ~16.8 MB, about
+// 5.0 us at 3.35 TB/s. This kernel also reads every kept point's id (4 B
+// more a point, ~4.2 MB, which the bound does not count): the run starts
+// come from the staged ids instead of a search per segment. The plan gives
+// 2816-point chunks (373 blocks) and 1024-point tiles there.
+
+struct TagsOp {
+  float tag_acc[NDTPU_MAX_TAGS];
+  int n_tags;
+  Rows rows;
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t) tag_acc[t] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const float* stage,
+                                      const int (&off)[kMaxCols], int g) {
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
+      if (t < n_tags) tag_acc[t] += stage[off[kTag0 + t] + g];
+  }
+
+  __device__ __forceinline__ void finish(int, int s) {
+    const float total = warp_reduce_scatter(tag_acc);
+    const int t = threadIdx.x & 31;
+    if (t < n_tags) rows.out[static_cast<long long>(s) * n_tags + t] = total;
+  }
+};
+
+__global__ void __launch_bounds__(kRangeThreads) segment_tags_kernel(
+    Cols cols, int n_tags, int n, int num_segments, int chunk, int tile,
     float* __restrict__ out) {
-  __shared__ float warp_sums[kBlock / 32][NDTPU_MAX_TAGS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int s = blockIdx.x;
-  const int start = warp_lower_bound(seg, 0, n, s);
-  const int end = warp_lower_bound(seg, start, n, static_cast<long long>(s) + 1);
-  float acc[NDTPU_MAX_TAGS];
+  extern __shared__ __align__(16) float smem[];
+  int n_cols = 0;
 #pragma unroll
-  for (int t = 0; t < NDTPU_MAX_TAGS; ++t) acc[t] = 0.0f;
-  for (int i = start + threadIdx.x; i < end; i += kBlock) {
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      if (t < n_tags) acc[t] += __ldg(tags.p[t] + i);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      acc[t] += __shfl_down_sync(0xffffffffu, acc[t], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t) warp_sums[warp][t] = acc[t];
-  }
-  __syncthreads();
-  if (threadIdx.x < n_tags) {
-    float total = 0.0f;
-    for (int w = 0; w < kBlock / 32; ++w) total += warp_sums[w][threadIdx.x];
-    out[static_cast<long long>(s) * n_tags + threadIdx.x] = total;
-  }
+  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
+  const Rows rows = {out, n_tags, num_segments};
+  TagsOp op{{}, n_tags, rows};
+  reduce_chunk(cols, n, chunk, tile, smem,
+               reinterpret_cast<int*>(smem + 2 * n_cols * (tile + 8)), rows, op);
 }
 
 // ---- generic sorted segment sum (K2) ----
@@ -300,6 +617,34 @@ __global__ void __launch_bounds__(kBlock) segment_sum_kernel(
 
 }  // namespace
 
+namespace {
+
+// Launch a chunk kernel with the plan of its shape; error codes as the
+// entries return them.
+template <class Kernel, class... Args>
+int launch_chunks(Kernel kernel, const RangePlan& plan, void* stream,
+                  Args... args) {
+  if (plan.blocks > 0x7fffffffLL || plan.smem > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (plan.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(plan.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<static_cast<unsigned>(plan.blocks), kRangeThreads, plan.smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int column_count(const Cols& cols) {
+  int n = 0;
+  for (int c = 0; c < kMaxCols; ++c) n += cols.p[c] != nullptr;
+  return n;
+}
+
+}  // namespace
+
 extern "C" int ndtpu_segment_moments(
     const void* seg, const void* xt, const void* yt, const void* zt,
     const void* v, const void* cls, const void* const* tag_ptrs, int n_tags,
@@ -307,27 +652,20 @@ extern "C" int ndtpu_segment_moments(
   if (n_tags < 0 || n_tags > NDTPU_MAX_TAGS || batch < 0 || n < 0 ||
       num_segments < 0 || slots < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tasks = static_cast<long long>(batch) * num_segments;
-  if (tasks == 0) return static_cast<int>(cudaSuccess);
-  TagPtrs tags;
-  for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-    tags.p[t] = t < n_tags ? static_cast<const float*>(tag_ptrs[t]) : nullptr;
-  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * slots * 32 *
-                      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        segment_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long blocks = (tasks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_moments_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                           smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seg), static_cast<const float*>(xt),
-      static_cast<const float*>(yt), static_cast<const float*>(zt),
-      static_cast<const float*>(v), static_cast<const int*>(cls), tags, n_tags,
-      batch, n, num_segments, slots, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // nothing to sum, no grid: the wrapper returns zeros without a call
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  Cols cols = {};
+  cols.p[kSeg] = static_cast<const float*>(seg);
+  const void* const xyzv[4] = {xt, yt, zt, v};
+  for (int c = 0; c < 4; ++c) cols.p[kXt + c] = static_cast<const float*>(xyzv[c]);
+  for (int t = 0; t < n_tags; ++t)
+    cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
+  if (slots > 0) cols.p[kCls] = static_cast<const float*>(cls);
+  const RangePlan plan = range_plan(batch, n, column_count(cols), slots);
+  return launch_chunks(segment_moments_kernel, plan, stream, cols, n_tags, n,
+                       num_segments, slots, plan.chunk, plan.tile,
+                       static_cast<float*>(out));
 }
 
 extern "C" int ndtpu_segment_tags(const void* seg, const void* const* tag_ptrs,
@@ -335,14 +673,28 @@ extern "C" int ndtpu_segment_tags(const void* seg, const void* const* tag_ptrs,
                                   void* out, void* stream) {
   if (n_tags < 1 || n_tags > NDTPU_MAX_TAGS || n < 0 || num_segments < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (num_segments == 0) return static_cast<int>(cudaSuccess);
-  TagPtrs tags;
-  for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-    tags.p[t] = t < n_tags ? static_cast<const float*>(tag_ptrs[t]) : nullptr;
-  segment_tags_kernel<<<static_cast<unsigned>(num_segments), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seg), tags, n_tags, n, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // nothing to sum, no grid: the wrapper returns zeros without a call
+  if (num_segments == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  Cols cols = {};
+  cols.p[kSeg] = static_cast<const float*>(seg);
+  for (int t = 0; t < n_tags; ++t)
+    cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
+  const RangePlan plan = range_plan(1, n, column_count(cols), 0);
+  return launch_chunks(segment_tags_kernel, plan, stream, cols, n_tags, n,
+                       num_segments, plan.chunk, plan.tile,
+                       static_cast<float*>(out));
+}
+
+// The plan of a chunk kernel's launch, for the tests: out = {points per
+// block, points per tile, blocks, dynamic shared memory bytes}.
+extern "C" int ndtpu_range_plan(int batch, int n, int n_cols, int slots,
+                                long long* out) {
+  const RangePlan plan = range_plan(batch, n, n_cols, slots);
+  out[0] = plan.chunk;
+  out[1] = plan.tile;
+  out[2] = plan.blocks;
+  out[3] = static_cast<long long>(plan.smem);
+  return 0;
 }
 
 extern "C" int ndtpu_segment_sum(const void* seg, const void* feats, int batch,

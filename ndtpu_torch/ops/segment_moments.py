@@ -10,10 +10,11 @@ Ports of the three Pallas kernels of
 - ``segment_sum_sorted`` (``_kernel``, K2): the generic sorted segment sum.
 
 The kernels are ``ndtpu_torch/csrc/segment_moments.cu``; its comments say
-how each is laid out and what bounds it on an H100. Each wrapper checks
-its inputs, launches its kernel on the current stream for CUDA tensors
-(counting the launch in its ``launches`` attribute) and runs its plain
-version only for CPU tensors.
+how each is laid out and what bounds it on an H100. K1 and K3 stream
+chunks of points through shared memory; ``range_plan`` mirrors how the
+source sizes their launch. Each wrapper checks its inputs, launches its
+kernel on the current stream for CUDA tensors (counting the launch in its
+``launches`` attribute) and runs its plain version only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +30,34 @@ SOURCE = "segment_moments.cu"
 MAX_TAGS = 8  # NDTPU_MAX_TAGS in the source
 SUM_BLOCK = 256  # kBlock in the source: threads per segment of the sum kernel
 N_MOMENTS = 13
+# the chunk kernels (K1, K3); the names in the source are in brackets
+RANGE_WARPS = 4                       # warps per block (kRangeWarps)
+RANGE_THREADS = 32 * RANGE_WARPS
+STAGE_BYTES = 32 * 1024               # a stage's columns, at most (kStageBytes)
+MIN_TILE, MAX_TILE = 256, 1024        # points per tile (kMinTile, kMaxTile)
+MIN_CHUNK, CHUNK_STEP = 512, 256      # points per block (kMinChunk, kChunkStep)
+TARGET_BLOCKS = 384                   # (kTargetBlocks)
+
+
+def range_plan(batch: int, n: int, n_cols: int, slots: int = 0):
+    """The launch of a chunk kernel, as ``range_plan`` in the source
+    computes it: (points per block, points per tile, blocks, dynamic
+    shared memory bytes).
+
+    The chunk is the batch's points over TARGET_BLOCKS (about 3 blocks
+    for each of the card's 132 SMs), rounded up to a multiple of CHUNK_STEP,
+    at least MIN_CHUNK; the tile the largest power of two from MIN_TILE to
+    MAX_TILE whose ``n_cols`` staged columns fit STAGE_BYTES. Shared
+    memory holds two stages of ``n_cols`` columns of tile + 8 floats, each
+    warp's per-lane class histogram (``slots`` columns of 32) and a tile's
+    run starts."""
+    per_block = -(-batch * n // TARGET_BLOCKS)
+    chunk = max(MIN_CHUNK, -(-per_block // CHUNK_STEP) * CHUNK_STEP)
+    tile = MAX_TILE
+    while tile > MIN_TILE and n_cols * tile * 4 > STAGE_BYTES:
+        tile //= 2
+    smem = 4 * (2 * n_cols * (tile + 8) + RANGE_WARPS * slots * 32) + 4 * tile
+    return chunk, tile, batch * -(-n // chunk), smem
 
 
 def segment_sum_sorted_plain(feats, seg_ids, num_segments: int):
@@ -74,10 +103,16 @@ def fused_moments_error_bound(xt, yt, zt, v, cls, seg_ids, num_segments: int,
                               slots: int, tags=None):
     """Bound on the kernel's f32 rounding error, per output entry (f64).
 
-    In the kernel a lane adds ceil(L/32) terms of its segment (L rows) in
-    order and a 5-level tree adds the lanes, so to first order
-    |kernel - exact| <= (ceil(L/32) + 6) * 2**-24 * sum|terms| (the +1
-    covers the rounding of the products themselves)."""
+    The kernel's order (the note at the top of the source): one warp sums a
+    run; its lane l adds, in index order, the points whose offset from the
+    run's first point is l modulo 32, whatever chunks or tiles they fall
+    in, so it adds at most m = ceil(L/32) terms of a run of L rows; a fixed
+    5-level combine (warp_reduce_scatter) then adds the lanes. A recursive
+    sum of m terms errs by at most (m - 1) u sum|terms| to first order
+    (u = 2**-24); the combine adds 5 roundings on every term's path and the
+    products xx, xy, ... are rounded once more: (m + 5) u sum|terms|. The
+    bound takes (ceil(L/32) + 6) u sum|terms|, one term of slack, and is 0
+    for an empty row."""
     tags = tuple(t.double() for t in tags or ())
     cols = moment_columns(xt.double(), yt.double(), zt.double(), v.double(),
                           cls, slots, tags)
@@ -92,6 +127,19 @@ def segment_tags_sorted_plain(seg_ids, tags, num_segments: int):
     [num_segments, T] sums (ids outside [0, num_segments) dropped)."""
     return segment_sum_sorted_plain(torch.stack(tuple(tags), dim=-1), seg_ids,
                                     num_segments)
+
+
+def segment_tags_error_bound(seg_ids, tags, num_segments: int):
+    """Bound on the tags kernel's f32 rounding error, per output entry
+    (f64). Its order is K1's (``fused_moments_error_bound``) without the
+    products: (ceil(L/32) + 5) * 2**-24 * sum|terms| for a run of L rows,
+    one term of slack, 0 for an empty row. Under the callers' precondition (at most one
+    nonzero in a run) every sum is exact and the error is 0."""
+    cols = torch.stack([t.double().abs() for t in tags], dim=-1)
+    mag = segment_sum_sorted_plain(cols, seg_ids, num_segments)
+    rows = segment_sum_sorted_plain(torch.ones_like(cols[..., :1]), seg_ids,
+                                    num_segments)
+    return (torch.ceil(rows / 32) + 5) * 2.0**-24 * mag
 
 
 def segment_sum_error_bound(feats, seg_ids, num_segments: int):
@@ -136,6 +184,20 @@ def _tags_kernel():
                  [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]  # seg, tags
                  + [ctypes.c_int] * 3                   # n_tags, n, K
                  + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
+
+
+@functools.cache
+def _plan_entry():
+    return _bind("ndtpu_range_plan", [ctypes.c_int] * 4
+                 + [ctypes.POINTER(ctypes.c_longlong)])
+
+
+def kernel_range_plan(batch: int, n: int, n_cols: int, slots: int = 0):
+    """``range_plan`` as the built source computes it (needs nvcc): the
+    card's tests hold the Python mirror against it."""
+    out = (ctypes.c_longlong * 4)()
+    _plan_entry()(batch, n, n_cols, slots, out)
+    return tuple(out)
 
 
 @functools.cache
@@ -191,7 +253,7 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
     xt/yt/zt: [..., N] f32 voxel-center-shifted coordinates, pre-masked
     (invalid rows zero). v: [..., N] f32 validity (0 or 1). cls: [..., N]
     int32 class tags, or None when ``slots == 0``. seg_ids: [..., N] int32
-    dense sorted ranks (non-decreasing, unit steps; ids >= num_segments
+    sorted segment ranks (non-decreasing, gaps allowed; ids >= num_segments
     dropped). tags: optional sequence of [..., N] f32 columns with at most
     one nonzero per segment. Returns [..., num_segments, 13 + slots + T]
     f32 rows [count, sum x~ (3), sum x~x~^T (9), class histogram (slots),

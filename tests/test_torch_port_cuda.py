@@ -24,33 +24,70 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(b, n, k, slots, seed):
-    """[b, n] dense sorted ranks over k segments (the tail dropped with id
-    k), masked coordinates, class tags, 3 tag columns nonzero on each
-    segment's first row."""
-    rng = np.random.default_rng(seed)
+# run lengths just below, at and above the chunk kernels' tiles (256, 512,
+# 1024 points) and chunks (512 and up)
+EDGE_RUNS = (255, 256, 257, 1, 511, 512, 513, 1023, 1024, 1025, 31, 33)
+
+
+def layout_ids(layout, b, n, k, rng):
+    """[b, n] sorted ids over k segments (ids >= k dropped):
+    "random": dense ranks, the last 9 points dropped; "one": one segment
+    holds the whole cloud; "singletons": one point a segment; "edges": runs
+    of EDGE_RUNS lengths in turn, the ids past k dropped; "gaps": the first
+    third of the points on sorted ids with gaps (empty rows between and
+    after them), the rest a dropped tail."""
     seg = np.zeros((b, n), np.int32)
     for i in range(b):
-        seg[i, rng.choice(n - 1, size=k - 1, replace=False) + 1] = 1
-    seg = np.cumsum(seg, axis=1).astype(np.int32)
-    seg[:, -9:] = k
+        if layout == "random":
+            seg[i, rng.choice(n - 1, size=k - 1, replace=False) + 1] = 1
+            seg[i] = np.cumsum(seg[i])
+            seg[i, -9:] = k
+        elif layout == "singletons":
+            seg[i] = np.minimum(np.arange(n), k)
+        elif layout == "edges":
+            runs = np.resize(np.roll(EDGE_RUNS, i), n)
+            seg[i] = np.minimum(np.repeat(np.arange(n), runs)[:n], k)
+        elif layout == "gaps":
+            kept = n // 3
+            seg[i, :kept] = np.sort(rng.integers(0, k - k // 4, kept))
+            seg[i, kept:] = k + np.sort(rng.integers(0, 5, n - kept))
+        else:  # "one"
+            seg[i] = 0
+    return seg
+
+
+def inputs(b, n, k, slots, seed, layout="random", n_tags=3):
+    """[b, n] ids of the layout, masked coordinates, class tags, n_tags tag
+    columns nonzero on each segment's first row."""
+    rng = np.random.default_rng(seed)
+    seg = layout_ids(layout, b, n, k, rng)
     v = (rng.random((b, n)) > 0.1).astype(np.float32)
     cols = [(rng.normal(size=(b, n)) * v).astype(np.float32) for _ in range(3)]
     cls = rng.integers(0, max(slots, 1), (b, n)).astype(np.int32)
     first = np.ones((b, n), bool)
     first[:, 1:] = seg[:, 1:] != seg[:, :-1]
     tags = [np.where(first, rng.integers(0, 999, (b, n)), 0).astype(np.float32)
-            for _ in range(3)]
+            for _ in range(n_tags)]
     return [torch.from_numpy(a) for a in cols + [v, cls, seg]], \
         [torch.from_numpy(a) for a in tags]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,k,slots", [
-    (3, 20000, 500, 0), (3, 20000, 500, 29), (1, 37, 30, 2), (2, 5000, 1, 0),
+@pytest.mark.parametrize("b,n,k,slots,layout,n_tags", [
+    (3, 20000, 500, 0, "random", 3), (3, 20000, 500, 29, "random", 3),
+    (1, 37, 30, 2, "random", 3), (2, 5000, 1, 0, "random", 3),
+    (16, 70000, 1209, 0, "random", 3),       # the canonical request's shape
+    (1, 1 << 20, 1, 1, "one", 2),            # one segment, the whole cloud
+    (16, 4096, 4000, 0, "singletons", 0),
+    (16, 70000, 300, 29, "edges", 8),        # runs across tile/range edges
+    (1, 50000, 180, 1, "edges", 2),
+    (1, 200000, 3000, 1, "gaps", 3),         # empty rows, long dropped tail
+    (16, 20000, 700, 29, "gaps", 8),
 ])
-def test_segment_moments_kernel_matches_plain(cuda, b, n, k, slots):
-    args, tags = inputs(b, n, k, slots, seed=n + slots)
+def test_segment_moments_kernel_matches_plain(cuda, b, n, k, slots, layout,
+                                              n_tags):
+    args, tags = inputs(b, n, k, slots, seed=n + slots, layout=layout,
+                        n_tags=n_tags)
     args = [a.to(cuda) for a in args]
     tags = [t.to(cuda) for t in tags]
     xt, yt, zt, v, cls, seg = args
@@ -77,6 +114,16 @@ def test_segment_moments_kernel_matches_plain(cuda, b, n, k, slots):
                                   None if cls is None else cls[0], seg[0], k,
                                   slots, tags=[t[0] for t in tags])
     assert torch.equal(one, out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,n_cols,slots", [
+    (16, 70000, 8, 0), (1, 1 << 20, 8, 1), (1, 1 << 20, 5, 0),
+    (3, 20000, 14, 29), (1, 1, 1, 0), (64, 1 << 22, 9, 3),
+])
+def test_range_plan_matches_source(cuda, batch, n, n_cols, slots):
+    assert sm.kernel_range_plan(batch, n, n_cols, slots) == \
+        sm.range_plan(batch, n, n_cols, slots)
 
 
 @pytest.mark.cuda
@@ -122,22 +169,35 @@ def ranks(n, k, dropped, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,n_tags,dropped", [
-    (200000, 2504, 4, 5000), (3000, 3000, 1, 0), (5000, 1, 8, 0),
-    (100, 40, 2, 60),
+@pytest.mark.parametrize("n,k,n_tags,dropped,layout,sparse", [
+    (200000, 2504, 4, 5000, "ranks", True), (3000, 3000, 1, 0, "ranks", True),
+    (5000, 1, 8, 0, "ranks", True), (100, 40, 2, 60, "ranks", True),
+    (1 << 20, 1, 1, 0, "one", True),         # one segment, the whole cloud
+    (5000, 5000, 4, 0, "singletons", True),
+    (60000, 200, 8, 0, "edges", True),       # runs across tile/range edges
+    (300000, 2504, 4, 0, "gaps", True),      # empty rows, long dropped tail
+    (100000, 700, 4, 0, "edges", False),     # dense columns: within the bound
 ])
-def test_segment_tags_kernel_matches_plain(cuda, n, k, n_tags, dropped):
+def test_segment_tags_kernel_matches_plain(cuda, n, k, n_tags, dropped,
+                                           layout, sparse):
     rng = np.random.default_rng(n + n_tags)
-    seg = torch.from_numpy(ranks(n, k, dropped, rng)).to(cuda)
-    tags = [torch.from_numpy(t).to(cuda) for t in sparse_tags(seg.cpu().numpy(),
-                                                              n_tags, rng)]
+    seg = (ranks(n, k, dropped, rng) if layout == "ranks"
+           else layout_ids(layout, 1, n, k, rng)[0])
+    tags = (sparse_tags(seg, n_tags, rng) if sparse
+            else [rng.normal(size=n).astype(np.float32) for _ in range(n_tags)])
+    seg = torch.from_numpy(seg).to(cuda)
+    tags = [torch.from_numpy(t).to(cuda) for t in tags]
     before = sm.segment_tags_sorted.launches
     out = sm.segment_tags_sorted(seg, tags, k)
     again = sm.segment_tags_sorted(seg, tags, k)
     torch.cuda.synchronize()
     assert sm.segment_tags_sorted.launches == before + 2
     assert torch.equal(out, again)
-    assert torch.equal(out, sm.segment_tags_sorted_plain(seg, tags, k))
+    ref64 = sm.segment_tags_sorted_plain(seg, [t.double() for t in tags], k)
+    bound = sm.segment_tags_error_bound(seg, tags, k)
+    assert bool(((out.double() - ref64).abs() <= 2 * bound).all())
+    if sparse:  # one nonzero a segment: exact
+        assert torch.equal(out, sm.segment_tags_sorted_plain(seg, tags, k))
 
 
 @pytest.mark.cuda
