@@ -30,7 +30,10 @@ Phases, each of which ends the script with a non-zero exit on failure:
    tags kernel (K3,
    ``_tags_kernel``) and the segment sum kernel (K2, ``_kernel``) are held
    against their plain versions on random inputs and on the cloud's real
-   sorted inputs, and timed like K1.
+   sorted inputs, and timed like K1. K2 is also checked and timed at the
+   canonical batch's real sorted ids with 28 class slots ([16, 70000, 41]
+   -> [16, 1209, 41], the JAX ``segment_moments(num_class_slots=28,
+   use_pallas=True)`` route on that batch).
    Then 5 timed downsamples, each converged, in band, 2080 NDs, finite,
    with one K1 launch, one K3 launch per search evaluation plus one, and
    the collectives of the JAX structure; the sharded moments against the
@@ -179,15 +182,19 @@ def check_kernel(x, label):
     return err
 
 
-def time_ms(fn, iters=TIMED_ITERS):
+def time_ms(fn, iters=TIMED_ITERS, clean=False):
     """Median device time of fn() in ms (CUDA events), with the 50 MB L2
-    overwritten before each run, as the caller finds it after the sort."""
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    overwritten before each run, as the caller finds it after the sort: by
+    writing 256 MB (the L2 left dirty), or with ``clean`` by reading them."""
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -273,8 +280,9 @@ def k1_times(x, label):
 
 
 def k1_phase():
-    """Build K1, check it on random and canonical inputs, time it at the
-    canonical batch. Returns its kernels-line entry without launches."""
+    """Build the kernels, check K1 on random and canonical inputs, time it
+    at the canonical batch. Returns its kernels-line entry without
+    launches, and the canonical batch's real inputs."""
     t0 = time.perf_counter()
     lib = _build.build(sm.SOURCE)
     print(f"k1 build: {lib.name} in {time.perf_counter() - t0:.2f} s")
@@ -288,7 +296,7 @@ def k1_phase():
         "source": "ndtpu_torch/csrc/segment_moments.cu",
         "replaces": "ndtpu/ops/pallas/segment_moments.py:190",
         "max_abs_err": max(errs), **k1_times(real, "canonical"),
-    }
+    }, real
 
 
 def small_batch_check():
@@ -412,16 +420,16 @@ def check_tags(seg, tags, label):
     return 0.0
 
 
-def check_sum(feats, seg, label):
+def check_sum(feats, seg, label, k=GIANT_K):
     """K2 against its plain version on the card: every entry within twice
     the kernel's f32 summation bound (``segment_sum_error_bound``) of the
     plain version in float64, two launches bit-identical. Returns the
     largest difference from the f32 plain version."""
-    a = sm.segment_sum_sorted(feats, seg, GIANT_K)
-    b = sm.segment_sum_sorted(feats, seg, GIANT_K)
-    ref = sm.segment_sum_sorted_plain(feats, seg, GIANT_K)
-    ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, GIANT_K)
-    tol = 2 * sm.segment_sum_error_bound(feats, seg, GIANT_K)
+    a = sm.segment_sum_sorted(feats, seg, k)
+    b = sm.segment_sum_sorted(feats, seg, k)
+    ref = sm.segment_sum_sorted_plain(feats, seg, k)
+    ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, k)
+    tol = 2 * sm.segment_sum_error_bound(feats, seg, k)
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"k2 {label}: two launches differ")
@@ -456,13 +464,65 @@ def sorted_cloud(points, state):
             seg, table)
 
 
-def segment_reduce_call(data, seg):
-    """torch.segment_reduce over [N, F] rows for ids < GIANT_K (sorted, so
-    the dropped ids are the tail): the yardstick of K2 and K3."""
-    keep = seg < GIANT_K
-    lengths = torch.bincount(seg[keep].long(), minlength=GIANT_K)
-    rows = data[:int(keep.sum())]
+def segment_reduce_call(data, seg, k):
+    """torch.segment_reduce over the [..., N, F] rows of ids < k, every
+    cloud's k segments in turn: the yardstick of K2 and K3. The kept rows
+    are gathered here, outside the timed call."""
+    seg = seg.reshape(-1, seg.shape[-1])
+    keep = seg < k
+    ids = seg.long() + k * torch.arange(seg.shape[0], device=seg.device)[:, None]
+    lengths = torch.bincount(ids[keep], minlength=seg.shape[0] * k)
+    rows = data.reshape(-1, data.shape[-1])[keep.reshape(-1)]
     return lambda: torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)
+
+
+def reduce_times(name, label, call, plain, data, seg, k):
+    """The timing keys of K2 or K3 at one input: the kernel, its plain
+    version, the segment_reduce yardstick, the bound and the read floor.
+    The bound counts per kept point its F f32 columns and per row of the
+    [..., k, F] output its F floats, one add per column: the kernel also
+    reads every kept point's id (4 B a point, not counted) for its run
+    starts."""
+    lib = segment_reduce_call(data, seg, k)
+    width = data.shape[-1]
+    if not torch.equal(lib()[:, 0], plain().reshape(-1, width)[:, 0]):
+        raise AssertionError(f"{name}: yardstick disagrees with the plain version")
+    kept = int((seg < k).sum())
+    clouds = seg.numel() // seg.shape[-1]
+    bound_ms, bound_by, moved = bound(kept, 4 * width, 4 * clouds * k * width,
+                                      kept * width)
+    ms, plain_ms, library_ms = time_ms(call), time_ms(plain), time_ms(lib)
+    floor_ms = read_floor_ms(moved)
+    print(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({moved / 1e6:.2f} MB by {bound_by}; ids {4 * kept / 1e6:.2f} MB "
+          f"more), read floor {floor_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "read_floor_ms": floor_ms}
+
+
+def batch_sum_inputs(real, slots=C):
+    """K2's input at the canonical batch: the real sorted ids and the
+    [B, N, 13 + slots] moment columns with classes drawn from a seed (the
+    JAX segment_moments(num_class_slots=slots, use_pallas=True) route)."""
+    cls = torch.from_numpy(np.random.default_rng(11).integers(
+        0, slots, tuple(real["seg"].shape)).astype(np.int32)).cuda()
+    feats = sm.moment_columns(real["xt"], real["yt"], real["zt"], real["v"],
+                              cls, slots).contiguous()
+    return feats, real["seg"], real["k"]
+
+
+def k2_batch(real):
+    """K2 checked and timed at the canonical batch ([16, 70000, 41]):
+    its max_abs_err and timing keys there."""
+    feats, seg, k = batch_sum_inputs(real)
+    err = check_sum(feats, seg, "canonical batch, 28 slots", k)
+    times = reduce_times("segment_sum_sorted", "canonical batch F=41",
+                         lambda: sm.segment_sum_sorted(feats, seg, k),
+                         lambda: sm.segment_sum_sorted_plain(feats, seg, k),
+                         feats, seg, k)
+    return {"max_abs_err": err, **times}
 
 
 def giant_k1_inputs(points, state):
@@ -473,6 +533,26 @@ def giant_k1_inputs(points, state):
     x = ps._moment_inputs(points, mask, state.voxel_size, state.lens[0],
                           state.offsets[0], GIANT_K, cls)
     return dict(x, tags=list(x["tags"]), slots=1, k=GIANT_K)
+
+
+def giant_pair_inputs(points, state):
+    """K3's real inputs: the sorted (zy, x) pair keys at the accepted size,
+    as the search's last count builds them: (ids, 4 tag columns)."""
+    mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
+    cols = ps._sorted_pair_cols(points, mask, state.voxel_size, state.lens[0],
+                                state.offsets[0])
+    tseg, tags, _ = ps._table_inputs(cols, GIANT_K)
+    return tseg, tags
+
+
+def giant_oracle_inputs(points, state):
+    """K2's real inputs in the giant oracle: the [N, 14] moment columns of
+    the sorted cloud and its dense ranks."""
+    pts, centres, mseg, _ = sorted_cloud(points, state)
+    cls = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
+    feats = moments.moment_features(pts, centres, classes=cls,
+                                    num_class_slots=1)
+    return feats, mseg
 
 
 def giant_kernels(points, state):
@@ -491,52 +571,28 @@ def giant_kernels(points, state):
     k2_err = max(check_sum(torch.from_numpy(rng.normal(size=(GIANT_N, f)).astype(
         np.float32)).cuda(), seg, f"random F={f}") for f in (14, 42))
 
-    # real K3 inputs: the sorted (zy, x) pair keys at the accepted size,
-    # as the search's last count builds them
-    mask = torch.ones(GIANT_N, dtype=torch.bool, device="cuda")
-    cols = ps._sorted_pair_cols(points, mask, state.voxel_size, state.lens[0],
-                                state.offsets[0])
-    tseg, tags, _ = ps._table_inputs(cols, GIANT_K)
+    tseg, tags = giant_pair_inputs(points, state)
     k3_err = max(k3_err, check_tags(tseg, tags, "giant pair keys"))
-    # real K2 inputs: the [N, 14] moment columns of the sorted cloud
-    pts, centres, mseg, _ = sorted_cloud(points, state)
-    cls = torch.zeros(GIANT_N, dtype=torch.int32, device="cuda")
-    feats = moments.moment_features(pts, centres, classes=cls,
-                                    num_class_slots=1)
+    feats, mseg = giant_oracle_inputs(points, state)
     k2_err = max(k2_err, check_sum(feats, mseg, "giant moment columns"))
 
     out = []
-    for name, line, err, call, plain, data, seg_, width in (
+    for name, line, err, call, plain, data, seg_ in (
         ("segment_tags_sorted", 403, k3_err,
          lambda: sm.segment_tags_sorted(tseg, tags, GIANT_K),
          lambda: sm.segment_tags_sorted_plain(tseg, tags, GIANT_K),
-         torch.stack(tags, -1), tseg, PAIR_TAGS),
+         torch.stack(tags, -1), tseg),
         ("segment_sum_sorted", 56, k2_err,
          lambda: sm.segment_sum_sorted(feats, mseg, GIANT_K),
          lambda: sm.segment_sum_sorted_plain(feats, mseg, GIANT_K),
-         feats, mseg, feats.shape[-1]),
+         feats, mseg),
     ):
-        lib = segment_reduce_call(data, seg_)
-        if not torch.equal(lib()[:, 0], plain()[:, 0]):  # integer column
-            raise AssertionError(f"{name}: yardstick disagrees with the plain version")
-        # per kept point its `width` f32 columns (the ids are read only
-        # by each block's binary search, a few hundred loads), the
-        # [GIANT_K, width] rows written, one add per column
-        kept = int((seg_ < GIANT_K).sum())
-        bound_ms, bound_by, moved = bound(kept, 4 * width,
-                                          4 * GIANT_K * width, kept * width)
-        ms, plain_ms, library_ms = time_ms(call), time_ms(plain), time_ms(lib)
-        floor_ms = read_floor_ms(moved)
-        print(f"{name} giant: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({moved / 1e6:.2f} MB by {bound_by}), read floor {floor_ms:.4f} ms")
         out.append({
             "name": name, "route": "cuda",
             "source": "ndtpu_torch/csrc/segment_moments.cu",
             "replaces": f"ndtpu/ops/pallas/segment_moments.py:{line}",
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "read_floor_ms": floor_ms,
+            "max_abs_err": err,
+            **reduce_times(name, "giant", call, plain, data, seg_, GIANT_K),
         })
     return k1_err, k1_giant, out
 
@@ -724,7 +780,7 @@ def giant_phase():
         diff = (got - want_).abs()
         if bool((diff.double() > tol[:, 1:13]).any()):
             raise AssertionError(f"giant oracle: sums differ by {float(diff.max())}")
-        print(f"giant oracle: counts, table exact; sums max diff "
+        print(f"giant oracle: counts, table exact; K1 vs K2 sums max diff "
               f"{float(diff.max()):.3e} (entries beyond 2e-4: "
               f"{int((diff > 2e-4).sum())} of {diff.numel()})")
 
@@ -771,13 +827,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    k1 = k1_phase()
+    k1, real = k1_phase()
     served = serve_phase()
+    # after serving: the requests meet the card as the K1 phase left it
+    k2_canonical = k2_batch(real)
     giant_launches, giant_err, giant_times, k3_k2 = giant_phase()
-    # K1's launches on both main paths; its giant-shape times ride along
+    # K1's launches on both main paths; its giant-shape times ride along,
+    # as K2's canonical-batch times ride along with its giant entry
     k1["launches"] = served + giant_launches
     k1["max_abs_err"] = max(k1["max_abs_err"], giant_err)
     k1["giant"] = giant_times
+    k2 = k3_k2[1]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
+    k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}
     print(json.dumps({"kernels": [k1] + k3_k2}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

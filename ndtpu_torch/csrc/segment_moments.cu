@@ -14,45 +14,47 @@
 //
 // All three are bound by bytes on an H100 (3.35 TB/s): each does a few f32
 // additions per value it reads. A first port gave each segment a warp
-// (K1) or a block (K3) that found its run by a search and walked it from
-// device memory: a chain of dependent loads per segment, and one warp
-// walking the longest run (1782 points in the giant cloud) alone.
+// (K1) or a block (K2, K3) that found its run by a search and walked it
+// from device memory: a chain of dependent loads per segment, and one warp
+// or block walking the longest run (1782 points in the giant cloud) alone.
 //
-// K1 and K3: chunks of points streamed through shared memory. The grid has
-// one block per chunk of a cloud's points (range_plan sizes the chunks so
-// the call has about kTargetBlocks blocks, ~3 per SM). A block owns the
-// segments whose first point lies in its chunk [c0, c1) (an empty segment
-// belongs to the chunk that holds the point where it would start), so
-// every segment has one owner whatever the run lengths: no carries between
-// blocks, no second pass, no atomics, one launch per call. Three ids of
-// the chunk (before it, at its start, at its end) give the owned segments
-// [s_lo, s_hi); two warps find their points [p0, p1) with one galloping
-// warp search each (p0 is c0 unless the previous chunk's last run reaches
-// into the chunk; p1 lies one run past c1): two or three dependent loads
-// per block, no search per segment. A chunk in the dropped tail owns
-// nothing and reads nothing more. The block then streams [p0, p1) through
-// shared memory in tiles (256 to 1024 points, at most kStageBytes of
-// columns), two stages deep: 16-byte cp.async copies of every column the
-// kernel reads (tile starts aligned down to 16 B per column, the ragged
-// edges masked by the index range), the next tile's copies in flight while
-// the current one is reduced. Each tile's run starts come from the staged
-// ids, compacted in order by a ballot per warp; a gap in the ids writes
-// the empty rows in between. The tiles start at p0, after the searches,
-// not speculatively at c0: the previous run's tail before p0 is a tenth
-// of a chunk at the giant cloud, and with the L2 flushed the bytes, not
-// the searches, set the time (PERF.md).
+// All three now share one design: chunks of points streamed through shared
+// memory (reduce_chunk). The grid has one block per chunk of a cloud's
+// points (range_plan sizes the chunks so the call is one wave of resident
+// blocks, at most 3 per SM; K2 adds a grid dimension of column groups where
+// whole rows do not fit). A block owns the segments whose first point lies in
+// its chunk [c0, c1) (an empty segment belongs to the chunk that holds the
+// point where it would start), so every segment has one owner whatever the
+// run lengths: no carries between blocks, no second pass, no atomics, one
+// launch per call. Three ids of the chunk (before it, at its start, at its
+// end) give the owned segments [s_lo, s_hi); two warps find their points
+// [p0, p1) with one galloping warp search each (p0 is c0 unless the
+// previous chunk's last run reaches into the chunk; p1 lies one run past
+// c1): two or three dependent loads per block, no search per segment. A
+// chunk in the dropped tail owns nothing and reads nothing more. The block
+// then streams [p0, p1) through shared memory in tiles (256 to 1024
+// points, at most kStageBytes a stage), two stages deep: the next tile's
+// copies in flight while the current one is reduced. A staging policy says
+// what a tile holds: K1 and K3 stage compact columns (ColumnStage), K2 the
+// ids and a row-major block of F floats a point (RowStage). Each tile's run
+// starts come from the staged ids, compacted in order by a ballot per
+// warp; a gap in the ids writes the empty rows in between. The tiles start
+// at p0, after the searches, not speculatively at c0: the previous run's
+// tail before p0 is a tenth of a chunk at the giant cloud, and with the L2
+// flushed the bytes, not the searches, set the time (PERF.md).
 //
-// Summation order (both kernels). The runs of a block go to its warps in
+// Summation order (all three). The runs of a block go to its warps in
 // turn (run r to warp r mod kRangeWarps). Lane l adds the points of its run
 // whose offset from the run's first point is l modulo 32, in index order;
-// a run that crosses a tile edge keeps its partial sums in the warp's
-// registers. The lanes are then combined by warp_reduce_scatter: 5
-// additions on every term's path, in a fixed pattern. The order depends
-// only on the run: not on the chunks, the tiles or the launch, so two
-// launches are bit-identical. Each lane adds at most ceil(L / 32) terms of
-// a run of L points (the error bounds in ops/segment_moments.py follow
-// from that). Class histograms (K1, slots > 0) go to per-lane private
-// columns in shared memory, summed over lanes in lane order.
+// a run that crosses a tile edge keeps its partial sums (K1, K3 in the
+// warp's registers, K2 in a shared-memory carry). The lanes are then
+// combined by warp_reduce_scatter: 5 additions on every term's path, in a
+// fixed pattern. The order depends only on the run: not on the chunks, the
+// tiles, the column groups or the launch, so two launches are
+// bit-identical. Each lane adds at most ceil(L / 32) terms of a run of L
+// points (the error bounds in ops/segment_moments.py follow from that).
+// Class histograms (K1, slots > 0) go to per-lane private columns in shared
+// memory, summed over lanes in lane order.
 //
 // Every entry returns cudaGetLastError() after its launch (0 = success) and
 // launches on the stream it is given.
@@ -64,24 +66,28 @@
 
 namespace {
 
-constexpr int kBlock = 256;  // K2: one block per segment
-
-// K1, K3: the chunk kernels (the Python mirror is range_plan in
+// The chunk kernels (the Python mirror is range_plan in
 // ops/segment_moments.py). Chosen on the H100 at the serving and giant
 // shapes from a sweep of warps per block (4, 8, 16), stage sizes (8 to
-// 64 KB) and blocks per call (128 to 1536).
+// 64 KB) and blocks per call (128 to 1536): about 3 blocks an SM, in one
+// wave.
 constexpr int kRangeWarps = 4;
 constexpr int kRangeThreads = kRangeWarps * 32;
 constexpr int kStageBytes = 32 * 1024;  // a stage's columns, at most
 constexpr int kMinTile = 256, kMaxTile = 1024;
 constexpr int kMinChunk = 512, kChunkStep = 256;
-constexpr long long kTargetBlocks = 384;  // ~3 per SM of 132
+constexpr long long kSMs = 132;  // an H100 SXM's
+constexpr long long kBlocksPerSM = 3;  // the most the plan keeps resident
+constexpr long long kSmemPerSM = 228 * 1024;  // an SM's shared memory
+constexpr long long kSmemReserved = 1024;  // what the card keeps per block
+constexpr long long kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
+constexpr int kGroupWidth = 32;  // K2: columns of a grid column group
 constexpr int kMoments = 13;
 // Values a warp's lane holds for one run: K1's 10 moment sums and 8 tags.
 constexpr int kLaneValues = kMoments - 3 + NDTPU_MAX_TAGS;
 
-// Column slots of a chunk kernel: 0 seg (int32), 1-4 xt, yt, zt, v,
-// 5-12 the tag columns, 13 cls (int32). A null pointer is a column the
+// Column slots of a column-staged kernel: 0 seg (int32), 1-4 xt, yt, zt,
+// v, 5-12 the tag columns, 13 cls (int32). A null pointer is a column the
 // kernel does not read; only the others take room in shared memory.
 constexpr int kSeg = 0, kXt = 1, kV = 4, kTag0 = 5, kCls = 13;
 constexpr int kMaxCols = 14;
@@ -93,30 +99,71 @@ struct Cols {
 struct RangePlan {
   int chunk;  // points per block
   int tile;   // points per tile
-  long long blocks;
-  size_t smem;
+  int groups;  // K2's column groups (the grid's y), else 1
+  long long blocks;  // chunks of every cloud x groups
+  long long smem;
 };
 
-// Chunk: the batch's points over kTargetBlocks, rounded up to a multiple of
-// kChunkStep, at least kMinChunk. Tile: the largest power of two in
-// [kMinTile, kMaxTile] whose n_cols columns fit kStageBytes. Shared memory:
-// two stages of n_cols columns of tile + 8 floats (the point before the
-// tile and the 16-byte edges), each warp's per-lane histograms, the tile's
-// run starts.
-RangePlan range_plan(int batch, int n, int n_cols, int slots) {
+// Tile: the largest power of two in [kMinTile, kMaxTile] whose n_cols
+// columns fit kStageBytes. Shared memory: two stages of n_cols columns of
+// tile + 8 floats (the point before the tile and the 16-byte edges), each
+// warp's per-lane histograms (slots columns of 32), K2's carry (two
+// buffers of carry columns of 32), the tile's run starts. Chunk: the grid
+// is one wave of the blocks the card keeps resident (kBlocksPerSM on each
+// SM, fewer where their shared memory does not fit): each cloud and column
+// group gets an equal share of them, the chunk is a cloud's points over
+// its share, rounded up to a multiple of kChunkStep, at least kMinChunk. A
+// second, partial wave would leave most SMs idle while it runs.
+RangePlan range_plan(int batch, int n, long long n_cols, int slots,
+                     int carry, int groups) {
   RangePlan plan;
-  const long long points = static_cast<long long>(batch) * n;
-  const long long per_block = (points + kTargetBlocks - 1) / kTargetBlocks;
-  const long long rounded = (per_block + kChunkStep - 1) / kChunkStep * kChunkStep;
-  plan.chunk = rounded < kMinChunk ? kMinChunk : static_cast<int>(rounded);
   plan.tile = kMaxTile;
   while (plan.tile > kMinTile && n_cols * plan.tile * 4 > kStageBytes)
     plan.tile /= 2;
-  plan.blocks = static_cast<long long>(batch) * ((n + plan.chunk - 1) / plan.chunk);
-  plan.smem = sizeof(float) * (2 * static_cast<size_t>(n_cols) * (plan.tile + 8) +
-                               static_cast<size_t>(kRangeWarps) * slots * 32) +
-              sizeof(int) * plan.tile;
+  const long long scratch = 32LL * (kRangeWarps * slots + 2LL * carry);
+  plan.smem = 4 * (2 * n_cols * (plan.tile + 8) + scratch) + 4LL * plan.tile;
+  const long long fit = kSmemPerSM / (plan.smem + kSmemReserved);
+  const long long per_sm = fit < 1 ? 1 : fit < kBlocksPerSM ? fit : kBlocksPerSM;
+  const long long grids = static_cast<long long>(batch) * groups;
+  const long long share = kSMs * per_sm > grids ? kSMs * per_sm / grids : 1;
+  const long long per_chunk = (n + share - 1) / share;
+  const long long rounded = (per_chunk + kChunkStep - 1) / kChunkStep * kChunkStep;
+  plan.chunk = rounded < kMinChunk ? kMinChunk : static_cast<int>(rounded);
+  plan.groups = groups;
+  plan.blocks = grids * ((n + plan.chunk - 1) / plan.chunk);
   return plan;
+}
+
+// K2's layout: columns per block (width), floats between staged rows
+// (pitch), column groups. Whole rows where two stages of them fit a block
+// at the smallest tile, else groups of kGroupWidth columns. Whole rows of
+// F % 4 != 0 floats are staged as the contiguous span they are (pitch F:
+// lanes reading one column of 32 consecutive rows meet at most 2-way bank
+// conflicts). Any other layout is staged row by row in whole 16-byte units
+// (up to 3 floats of lead and 3 of tail) at a pitch of an odd number of
+// units: at most 4-way conflicts, where a pitch of F = 32 would put all 32
+// lanes on one bank.
+struct SumPlan {
+  RangePlan range;
+  int width, pitch;
+};
+
+// Floats a row of w takes staged in 16-byte units: 4 x an odd number of
+// units, at least those of w floats after a lead of up to 3.
+long long unit_pitch(long long w) { return 4 * (((w + 6) >> 2) | 1); }
+
+SumPlan sum_plan(int batch, int n, int f) {
+  SumPlan p;
+  p.width = f;
+  p.pitch = f % 4 ? f : static_cast<int>(unit_pitch(f));
+  p.range = range_plan(batch, n, 1LL + p.pitch, 0, p.width, 1);
+  if (p.range.smem > kMaxSmem) {
+    p.width = kGroupWidth;
+    p.pitch = static_cast<int>(unit_pitch(kGroupWidth));
+    p.range = range_plan(batch, n, 1LL + p.pitch, 0, p.width,
+                         (f + kGroupWidth - 1) / kGroupWidth);
+  }
+  return p;
 }
 
 // First index i in [lo, hi) with sg[i] >= s (hi if none), for sorted sg.
@@ -200,39 +247,30 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[S]) {
   return total;
 }
 
-// How many floats point lo of a column lies past its 16-byte chunk's start.
-__device__ __forceinline__ int lead_of(const float* col, int lo) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(col + lo) >> 2) & 3);
+// How many floats p lies past its 16-byte unit's start.
+__device__ __forceinline__ int lead_of(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-// Start the copies of points [lo, hi) of every column read into one stage
-// (hi - lo <= tile + 1). Column c's point g lands at
-// stage[slot(c) * (tile + 8) + lead_of(col c, lo) + g - lo]. A chunk at
-// the ragged edge may hold up to 3 floats outside [lo, hi), never outside
-// the 16-byte-aligned unit of a valid float (so never on an unmapped
-// page); the reduction reads only [lo, hi).
-__device__ __forceinline__ void issue_tile(const Cols& cols, long long base,
-                                           int lo, int hi, int col_floats,
-                                           float* stage) {
-  int slot = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    if (cols.p[c] == nullptr) continue;
-    const int lead = lead_of(cols.p[c] + base, lo);
-    const float* aligned = cols.p[c] + base + lo - lead;
-    const int chunks = (lead + (hi - lo) + 3) >> 2;
-    float* dst = stage + slot * col_floats;
-    for (int k = threadIdx.x; k < chunks; k += kRangeThreads)
-      cp_async16(dst + 4 * k, aligned + 4 * k);
-    ++slot;
-  }
+// Start the 16-byte copies of the count floats at src into dst, which gets
+// them from dst[lead_of(src)] on. The span's ragged edges may bring up to 3
+// floats on either side, never outside the 16-byte-aligned unit of a valid
+// float (so never on an unmapped page); the readers read only the span.
+__device__ __forceinline__ void issue_span(const float* src, int count,
+                                           float* dst) {
+  const int lead = lead_of(src);
+  const float* aligned = src - lead;
+  const int chunks = (lead + count + 3) >> 2;
+  for (int k = threadIdx.x; k < chunks; k += kRangeThreads)
+    cp_async16(dst + 4 * k, aligned + 4 * k);
 }
 
-// Output rows [from, to) of cloud b, zeroed by the threads i, i + stride, ...
+// The rows of a [batch, num_segments, f] output table.
 struct Rows {
   float* out;
   int f, num_segments;
 
+  // rows [from, to) of cloud b, zeroed by the threads i, i + stride, ...
   __device__ __forceinline__ void zero(int b, int from, int to, int i,
                                        int stride) const {
     float* row = out + (static_cast<long long>(b) * num_segments + from) * f;
@@ -241,16 +279,152 @@ struct Rows {
   }
 };
 
+// K2: columns [c0, c0 + w) of the rows (all of them but in column groups).
+struct GroupRows {
+  float* out;
+  int f, num_segments, c0, w;
+
+  __device__ __forceinline__ void zero(int b, int from, int to, int i,
+                                       int stride) const {
+    if (w == f) return Rows{out, f, num_segments}.zero(b, from, to, i, stride);
+    float* row = out + (static_cast<long long>(b) * num_segments + from) * f + c0;
+    for (int s = 0; s < to - from; ++s)
+      for (int c = i; c < w; c += stride) row[static_cast<long long>(s) * f + c] = 0.0f;
+  }
+};
+
+// ---- staging policies ----
+//
+// A policy gives reduce_chunk the ids (seg_ids, for the ownership and the
+// searches), the floats a stage takes, the copies of points [lo, hi) of
+// cloud b (base = b * n) into a stage, and a view of a landed stage: the
+// staged ids (ids[g] for g in [lo, hi)) and what the op reads.
+
+// K1, K3: the non-null columns of cols, each in its own slot of tile + 8
+// floats; column c's point g at stage[slot(c) * (tile + 8) + lead + g - lo].
+struct ColumnView {
+  const float* stage;
+  int off[kMaxCols];  // column c of point g at stage[off[c] + g]
+  const int* ids;
+};
+
+struct ColumnStage {
+  Cols cols;
+
+  __device__ __forceinline__ const int* seg_ids() const {
+    return reinterpret_cast<const int*>(cols.p[kSeg]);
+  }
+
+  __device__ __forceinline__ int floats(int tile) const {
+    int n_cols = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
+    return n_cols * (tile + 8);
+  }
+
+  __device__ __forceinline__ void issue(long long base, int lo, int hi,
+                                        int tile, float* stage) const {
+    int slot = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (cols.p[c] == nullptr) continue;
+      issue_span(cols.p[c] + base + lo, hi - lo, stage + slot++ * (tile + 8));
+    }
+  }
+
+  __device__ __forceinline__ ColumnView view(const float* stage,
+                                             long long base, int lo,
+                                             int tile) const {
+    ColumnView v;
+    v.stage = stage;
+    int slot = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (cols.p[c] == nullptr) {
+        v.off[c] = 0;
+        continue;
+      }
+      v.off[c] = slot++ * (tile + 8) + lead_of(cols.p[c] + base + lo) - lo;
+    }
+    v.ids = reinterpret_cast<const int*>(stage) + v.off[kSeg];
+    return v;
+  }
+};
+
+// K2: the ids in a slot of tile + 8 floats, then columns [c0, c0 + w) of
+// each row of a row-major [N, f] block. Whole rows at pitch f are one
+// contiguous span; other rows are staged one by one in the 16-byte units
+// that hold their w floats, row r (= g - lo) at r * pitch, its first float
+// lead(r) floats into it (a lane a unit, 32 / units rows a warp at once).
+struct RowView {
+  const int* ids;
+  const float* rows;
+  int lo, pitch, lead0, step;  // lead(r) = (lead0 + r * step) & 3
+
+  __device__ __forceinline__ const float* row(int g) const {
+    const int r = g - lo;
+    return rows + r * pitch + ((lead0 + r * step) & 3);
+  }
+};
+
+struct RowStage {
+  const int* seg;
+  const float* feats;
+  int f, pitch, c0, w;
+
+  __device__ __forceinline__ const int* seg_ids() const { return seg; }
+
+  __device__ __forceinline__ int floats(int tile) const {
+    return (1 + pitch) * (tile + 8);
+  }
+
+  __device__ __forceinline__ const float* first_row(long long base,
+                                                    int lo) const {
+    return feats + (base + lo) * f + c0;
+  }
+
+  __device__ __forceinline__ void issue(long long base, int lo, int hi,
+                                        int tile, float* stage) const {
+    issue_span(reinterpret_cast<const float*>(seg) + base + lo, hi - lo, stage);
+    float* dst = stage + tile + 8;
+    const float* src = first_row(base, lo);
+    if (pitch == f) {
+      issue_span(src, (hi - lo) * f, dst);
+      return;
+    }
+    const int units = pitch / 4, at_once = 32 / units;
+    const int lane = threadIdx.x & 31, q = lane / units, u = lane - q * units;
+    if (q >= at_once) return;
+    for (int r = (threadIdx.x >> 5) * at_once + q; r < hi - lo;
+         r += kRangeWarps * at_once) {
+      const float* row = src + static_cast<long long>(r) * f;
+      const int lead = lead_of(row);
+      if (u < (lead + w + 3) >> 2)
+        cp_async16(dst + r * pitch + 4 * u, row - lead + 4 * u);
+    }
+  }
+
+  __device__ __forceinline__ RowView view(const float* stage, long long base,
+                                          int lo, int tile) const {
+    return {reinterpret_cast<const int*>(stage) + lead_of(seg + base + lo) - lo,
+            stage + tile + 8, lo, pitch, lead_of(first_row(base, lo)),
+            pitch == f ? 0 : f & 3};
+  }
+};
+
 // The chunk kernels' common body (the note at the top of the file). Op:
-// reset() zeroes a warp's sums; add(stage, off, g) adds point g, whose
-// column c is stage[off[c] + g]; finish(b, s) combines the lanes and
-// writes row s of cloud b; rows is the output. Shared memory: the stages,
-// then op's histograms, then the tile's run starts.
-template <class Op>
-__device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
+// run(view, g0, to, t, resume, closes, b, s) adds this lane's points g0,
+// g0 + 32, ... below `to` of tile t's part of the run of segment s of
+// cloud b (resume: the run began in an earlier tile, whose sums the op
+// kept), and if closes, combines the lanes and writes row s; reset()
+// clears a warp's sums before its first run. rows is the output (Rows or
+// GroupRows). Shared memory: the stages, then the op's scratch, then the
+// tile's run starts.
+template <class Stage, class Out, class Op>
+__device__ __forceinline__ void reduce_chunk(const Stage& in, int n,
                                              int chunk, int tile,
                                              float* stages, int* runs,
-                                             const Rows& rows, Op& op) {
+                                             const Out& rows, Op& op) {
   __shared__ int interval[2];
   constexpr int kMaxRounds = kMaxTile / kRangeThreads;
   __shared__ int starts_of[kMaxRounds][kRangeWarps];
@@ -262,7 +436,7 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
   const int c0 = (blockIdx.x % chunks) * chunk;
   const int c1 = min(c0 + chunk, n);
   const long long base = static_cast<long long>(b) * n;
-  const int* sg = reinterpret_cast<const int*>(cols.p[kSeg]) + base;
+  const int* sg = in.seg_ids() + base;
 
   // owned segments [s_lo, s_hi): those that start in [c0, c1)
   const int before = c0 > 0 ? __ldg(sg + c0 - 1) : -1;
@@ -272,11 +446,7 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
   const int s_hi = c1 < n ? min(max(last + 1, 0), k) : k;
   if (s_lo >= s_hi) return;
 
-  int n_cols = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
-  const int col_floats = tile + 8;
-  const int stage_floats = n_cols * col_floats;
+  const int stage_floats = in.floats(tile);
   if (warp == 0) {
     const int p = first > before && first >= s_lo ? c0
                                                   : warp_gallop(sg, c0, n, s_lo);
@@ -288,7 +458,7 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
   __syncthreads();
   const int p0 = interval[0], p1 = interval[1];
   const int tiles = (p1 - p0 + tile - 1) / tile;
-  if (tiles > 0) issue_tile(cols, base, p0, min(p0 + tile, p1), col_floats, stages);
+  if (tiles > 0) in.issue(base, p0, min(p0 + tile, p1), tile, stages);
   cp_async_commit();
   const int rounds = tile / kRangeThreads;
 
@@ -299,25 +469,15 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
     const int start = p0 + t * tile;
     const int end = min(start + tile, p1);
     if (t + 1 < tiles)  // the next tile, with the point before it
-      issue_tile(cols, base, end - 1, min(end + tile, p1), col_floats,
-                 stages + ((t + 1) & 1) * stage_floats);
+      in.issue(base, end - 1, min(end + tile, p1), tile,
+               stages + ((t + 1) & 1) * stage_floats);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile t has landed for every thread
 
     const int lo = t == 0 ? p0 : start - 1;
-    const float* stage = stages + (t & 1) * stage_floats;
-    int off[kMaxCols];
-    int slot = 0;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      if (cols.p[c] == nullptr) {
-        off[c] = 0;
-        continue;
-      }
-      off[c] = slot++ * col_floats + lead_of(cols.p[c] + base, lo) - lo;
-    }
-    const int* ids = reinterpret_cast<const int*>(stage) + off[kSeg];
+    const auto view = in.view(stages + (t & 1) * stage_floats, base, lo, tile);
+    const int* ids = view.ids;
 
     // run starts of this tile, in order: in round i thread x looks at
     // point start + i * kRangeThreads + x (neighbouring lanes, neighbouring
@@ -362,12 +522,8 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
       const bool closes = r + 1 < r_end || end == p1;
       const int to = r + 1 < r_end ? runs[r + 1 - run_base] : end;
       const int a = max(st, start);
-      for (int g = a + ((st + lane - a) & 31); g < to; g += 32)
-        op.add(stage, off, g);
-      if (closes) {
-        op.finish(b, id);
-        op.reset();
-      } else {
+      op.run(view, a + ((st + lane - a) & 31), to, t, st < start, closes, b, id);
+      if (!closes) {
         open_start = st;
         open_id = id;
       }
@@ -379,6 +535,20 @@ __device__ __forceinline__ void reduce_chunk(const Cols& cols, int n,
   // the empty rows after the last point (all of them if there is none)
   rows.zero(b, p1 > p0 ? __ldg(sg + p1 - 1) + 1 : s_lo, s_hi, threadIdx.x,
             kRangeThreads);
+}
+
+// The run step of an op that keeps a run's sums in its warp's registers
+// across tiles (K1, K3): add(view, g) adds point g, finish(b, s) combines
+// the lanes and writes row s.
+template <class Op, class View>
+__device__ __forceinline__ void run_in_registers(Op& op, const View& v, int g0,
+                                                 int to, bool closes, int b,
+                                                 int s) {
+  for (int g = g0; g < to; g += 32) op.add(v, g);
+  if (closes) {
+    op.finish(b, s);
+    op.reset();
+  }
 }
 
 // ---- segment moments (K1) ----
@@ -422,10 +592,15 @@ struct MomentsOp {
     for (int c = 0; c < slots; ++c) hist[c * 32 + lane] = 0.0f;
   }
 
-  __device__ __forceinline__ void add(const float* stage,
-                                      const int (&off)[kMaxCols], int g) {
-    const float x = stage[off[kXt] + g], y = stage[off[kXt + 1] + g],
-                z = stage[off[kXt + 2] + g], w = stage[off[kV] + g];
+  __device__ __forceinline__ void run(const ColumnView& v, int g0, int to,
+                                      int, bool, bool closes, int b, int s) {
+    run_in_registers(*this, v, g0, to, closes, b, s);
+  }
+
+  __device__ __forceinline__ void add(const ColumnView& v, int g) {
+    const float* stage = v.stage;
+    const float x = stage[v.off[kXt] + g], y = stage[v.off[kXt + 1] + g],
+                z = stage[v.off[kXt + 2] + g], w = stage[v.off[kV] + g];
     acc[0] += w;
     acc[1] += x;
     acc[2] += y;
@@ -438,9 +613,9 @@ struct MomentsOp {
     acc[9] += z * z;
 #pragma unroll
     for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      if (t < n_tags) tag_acc[t] += stage[off[kTag0 + t] + g];
+      if (t < n_tags) tag_acc[t] += stage[v.off[kTag0 + t] + g];
     if (slots > 0) {
-      const int c = __float_as_int(stage[off[kCls] + g]);
+      const int c = __float_as_int(stage[v.off[kCls] + g]);
       if (c >= 0 && c < slots) hist[c * 32 + (threadIdx.x & 31)] += w;
     }
   }
@@ -494,17 +669,15 @@ struct MomentsOp {
 };
 
 __global__ void __launch_bounds__(kRangeThreads) segment_moments_kernel(
-    Cols cols, int n_tags, int n, int num_segments, int slots, int chunk,
+    ColumnStage in, int n_tags, int n, int num_segments, int slots, int chunk,
     int tile, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  int n_cols = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
   // [stages][histograms][runs]
-  float* hist = smem + 2 * n_cols * (tile + 8);
-  const Rows rows = {out, kMoments + slots + n_tags, num_segments};
+  float* hist = smem + 2 * in.floats(tile);
+  const int f = kMoments + slots + n_tags;
+  const Rows rows = {out, f, num_segments};
   MomentsOp op{{}, {}, hist + (threadIdx.x >> 5) * slots * 32, slots, n_tags, rows};
-  reduce_chunk(cols, n, chunk, tile, smem,
+  reduce_chunk(in, n, chunk, tile, smem,
                reinterpret_cast<int*>(hist + kRangeWarps * slots * 32), rows, op);
 }
 
@@ -535,11 +708,15 @@ struct TagsOp {
     for (int t = 0; t < NDTPU_MAX_TAGS; ++t) tag_acc[t] = 0.0f;
   }
 
-  __device__ __forceinline__ void add(const float* stage,
-                                      const int (&off)[kMaxCols], int g) {
+  __device__ __forceinline__ void run(const ColumnView& v, int g0, int to,
+                                      int, bool, bool closes, int b, int s) {
+    run_in_registers(*this, v, g0, to, closes, b, s);
+  }
+
+  __device__ __forceinline__ void add(const ColumnView& v, int g) {
 #pragma unroll
     for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      if (t < n_tags) tag_acc[t] += stage[off[kTag0 + t] + g];
+      if (t < n_tags) tag_acc[t] += v.stage[v.off[kTag0 + t] + g];
   }
 
   __device__ __forceinline__ void finish(int, int s) {
@@ -550,81 +727,114 @@ struct TagsOp {
 };
 
 __global__ void __launch_bounds__(kRangeThreads) segment_tags_kernel(
-    Cols cols, int n_tags, int n, int num_segments, int chunk, int tile,
+    ColumnStage in, int n_tags, int n, int num_segments, int chunk, int tile,
     float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  int n_cols = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) n_cols += cols.p[c] != nullptr;
   const Rows rows = {out, n_tags, num_segments};
   TagsOp op{{}, n_tags, rows};
-  reduce_chunk(cols, n, chunk, tile, smem,
-               reinterpret_cast<int*>(smem + 2 * n_cols * (tile + 8)), rows, op);
+  reduce_chunk(in, n, chunk, tile, smem,
+               reinterpret_cast<int*>(smem + 2 * in.floats(tile)), rows, op);
 }
 
 // ---- generic sorted segment sum (K2) ----
 //
-// out[b, s, c] = the sum of feats[b, i, c] over the points i with
-// seg[b, i] == s, for s < num_segments, feats row-major [batch, N, F] f32,
-// any F (the moments give 13 + slots, up to 42).
+// Replaces _kernel (ndtpu/ops/pallas/segment_moments.py:56, entry
+// segment_sum_sorted): out[b, s, c] = the sum of feats[b, i, c] over the
+// points i with seg[b, i] == s, for s < num_segments, feats row-major
+// [batch, N, F] f32, any F >= 1 (the moments give 13 + slots, 14 for the
+// giant oracle, 41 with 28 class slots).
 //
-// One block of kBlock threads per (cloud, segment, tile of up to 32
-// columns). In a tile of w columns the threads form g = kBlock / w row
-// groups of w: thread (q, c) sums column c of rows start + q,
-// start + q + g, ... in order, so each step of the block reads g * w
-// consecutive floats (whole rows, coalesced). Then thread (0, c) adds the
-// g partial sums in group order from shared memory. The order depends only
-// on the run's length: bit-identical from launch to launch, and
-// |sum - exact| <= (ceil(L / g) + g) * 2^-24 * sum|terms| to first order
-// for a run of L rows. A block (not a warp) per segment keeps the longest
-// run's walk short: g = 18 groups for the moments' 14 columns.
+// The chunk design above with RowStage: each tile stages the ids and the
+// rows of its points, the TPU kernel's [block_n, F] VMEM window. sum_plan
+// picks whole rows (width F) where two stages fit at the smallest tile
+// (F <= 95; F <= 88 for F % 4 == 0), else a grid dimension of column
+// groups of kGroupWidth: each block then stages the ids and its slice of
+// each row (the layouts at sum_plan). The warp of a run walks the run's
+// staged rows once per pass of up to S = 16 or 32 columns (the lane's
+// sums in registers): lane l adds the rows at offset l mod 32
+// from the run's start, in index order, then warp_reduce_scatter<S> joins
+// the lanes and lane j writes column j of the pass. A run open at a tile's
+// end parks its lane sums in a shared [width][32] carry and its warp takes
+// them back in the next tile. One run at a time is open, but the next
+// tile's open run may be parked before they are taken back: the carry has
+// two buffers, by the parity of the tile that parks. The order is K1's and
+// K3's: (ceil(L / 32) + 5) u sum|terms| for a run of L rows
+// (segment_sum_error_bound), whatever F and the grouping.
 //
-// Bound: seg and the F floats of every point read once (4 + 4F B), the
-// [num_segments, F] rows written once. For the moments of the giant cloud
-// (N = 1,048,576, F = 14) that is ~63 MB, about 19 us at 3.35 TB/s.
-__global__ void __launch_bounds__(kBlock) segment_sum_kernel(
-    const int* __restrict__ seg, const float* __restrict__ feats, int n, int f,
-    int num_segments, int col_tiles, float* __restrict__ out) {
-  __shared__ float partial[kBlock];
-  const int tile = static_cast<int>(blockIdx.x % col_tiles);
-  const long long row = blockIdx.x / col_tiles;  // b * num_segments + s
-  const int b = static_cast<int>(row / num_segments);
-  const int s = static_cast<int>(row % num_segments);
-  const int* sg = seg + static_cast<long long>(b) * n;
-  const int start = warp_lower_bound(sg, 0, n, s);
-  const int end = warp_lower_bound(sg, start, n, static_cast<long long>(s) + 1);
+// Bound: the F floats of every kept point read once, the [num_segments, F]
+// rows written once. For the giant oracle (N = 1,048,576, F = 14,
+// num_segments = 2504) that is 58.86 MB, about 17.6 us at 3.35 TB/s. The
+// kernel also reads every kept point's id (4 B a point, 4.19 MB there, not
+// in the bound) for its run starts, and the point before each tile again.
+// The plan gives 2816-point chunks (373 blocks), 512-point tiles and
+// 66.4 KB of shared memory (3 blocks an SM) there.
 
-  const int c0 = tile * 32;
-  const int width = min(32, f - c0);
-  const int groups = kBlock / width;
-  const int grp = threadIdx.x / width;
-  const int col = threadIdx.x - grp * width;
-  float acc = 0.0f;
-  if (grp < groups) {
-    const float* p = feats + static_cast<long long>(b) * n * f + c0 + col;
-#pragma unroll 4
-    for (int i = start + grp; i < end; i += groups)
-      acc += __ldg(p + static_cast<long long>(i) * f);
+template <int S>
+struct SumOp {
+  float* carry;  // [2][w][32]: the lane sums of the run open at a tile's end
+  GroupRows rows;
+
+  __device__ __forceinline__ void reset() {}
+
+  __device__ __forceinline__ void run(const RowView& v, int g0, int to, int t,
+                                      bool resume, bool closes, int b, int s) {
+    const int lane = threadIdx.x & 31;
+    const int w = rows.w;
+    const float* parked = carry + ((t + 1) & 1) * 32 * w + lane;  // by t - 1
+    float* park = carry + (t & 1) * 32 * w + lane;
+    for (int q = 0; q < w; q += S) {
+      float acc[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        acc[j] = resume && q + j < w ? parked[(q + j) * 32] : 0.0f;
+      for (int g = g0; g < to; g += 32) {
+        const float* row = v.row(g) + q;
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          if (q + j < w) acc[j] += row[j];
+      }
+      if (closes) {
+        const float total = warp_reduce_scatter(acc);
+        if (lane < S && q + lane < w)
+          rows.out[(static_cast<long long>(b) * rows.num_segments + s) * rows.f +
+                   rows.c0 + q + lane] = total;
+      } else {
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          if (q + j < w) park[(q + j) * 32] = acc[j];
+      }
+    }
   }
-  partial[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < width) {
-    float total = 0.0f;
-    for (int q = 0; q < groups; ++q) total += partial[q * width + threadIdx.x];
-    out[row * f + c0 + threadIdx.x] = total;
-  }
+};
+
+// A minimum of 4 blocks an SM caps a thread at 128 registers: without it
+// ptxas keeps segment_sum_kernel<16> at 80 registers and spills (PERF.md).
+template <int S>
+__global__ void __launch_bounds__(kRangeThreads, 4) segment_sum_kernel(
+    RowStage in, int width, int n, int num_segments, int chunk, int tile,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  in.c0 = blockIdx.y * width;
+  in.w = min(width, in.f - in.c0);
+  // [stages][carry][runs]
+  float* carry = smem + 2 * in.floats(tile);
+  const GroupRows rows = {out, in.f, num_segments, in.c0, in.w};
+  SumOp<S> op{carry, rows};
+  reduce_chunk(in, n, chunk, tile, smem,
+               reinterpret_cast<int*>(carry + 2 * 32 * width), rows, op);
 }
 
 }  // namespace
 
 namespace {
 
-// Launch a chunk kernel with the plan of its shape; error codes as the
-// entries return them.
+// Launch a chunk kernel with the plan of its shape (grid: chunks x column
+// groups); error codes as the entries return them.
 template <class Kernel, class... Args>
 int launch_chunks(Kernel kernel, const RangePlan& plan, void* stream,
                   Args... args) {
-  if (plan.blocks > 0x7fffffffLL || plan.smem > 227 * 1024)
+  const long long x = plan.blocks / plan.groups;
+  if (x > 0x7fffffffLL || plan.groups > 65535 || plan.smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (plan.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -632,7 +842,8 @@ int launch_chunks(Kernel kernel, const RangePlan& plan, void* stream,
         static_cast<int>(plan.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<static_cast<unsigned>(plan.blocks), kRangeThreads, plan.smem,
+  kernel<<<dim3(static_cast<unsigned>(x), static_cast<unsigned>(plan.groups)),
+           kRangeThreads, static_cast<size_t>(plan.smem),
            static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -641,6 +852,13 @@ int column_count(const Cols& cols) {
   int n = 0;
   for (int c = 0; c < kMaxCols; ++c) n += cols.p[c] != nullptr;
   return n;
+}
+
+void write_plan(const RangePlan& plan, long long* out) {
+  out[0] = plan.chunk;
+  out[1] = plan.tile;
+  out[2] = plan.blocks;
+  out[3] = plan.smem;
 }
 
 }  // namespace
@@ -655,15 +873,15 @@ extern "C" int ndtpu_segment_moments(
   // nothing to sum, no grid: the wrapper returns zeros without a call
   if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
     return static_cast<int>(cudaSuccess);
-  Cols cols = {};
-  cols.p[kSeg] = static_cast<const float*>(seg);
+  ColumnStage in = {};
+  in.cols.p[kSeg] = static_cast<const float*>(seg);
   const void* const xyzv[4] = {xt, yt, zt, v};
-  for (int c = 0; c < 4; ++c) cols.p[kXt + c] = static_cast<const float*>(xyzv[c]);
+  for (int c = 0; c < 4; ++c) in.cols.p[kXt + c] = static_cast<const float*>(xyzv[c]);
   for (int t = 0; t < n_tags; ++t)
-    cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
-  if (slots > 0) cols.p[kCls] = static_cast<const float*>(cls);
-  const RangePlan plan = range_plan(batch, n, column_count(cols), slots);
-  return launch_chunks(segment_moments_kernel, plan, stream, cols, n_tags, n,
+    in.cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
+  if (slots > 0) in.cols.p[kCls] = static_cast<const float*>(cls);
+  const RangePlan plan = range_plan(batch, n, column_count(in.cols), slots, 0, 1);
+  return launch_chunks(segment_moments_kernel, plan, stream, in, n_tags, n,
                        num_segments, slots, plan.chunk, plan.tile,
                        static_cast<float*>(out));
 }
@@ -675,26 +893,14 @@ extern "C" int ndtpu_segment_tags(const void* seg, const void* const* tag_ptrs,
     return static_cast<int>(cudaErrorInvalidValue);
   // nothing to sum, no grid: the wrapper returns zeros without a call
   if (num_segments == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  Cols cols = {};
-  cols.p[kSeg] = static_cast<const float*>(seg);
+  ColumnStage in = {};
+  in.cols.p[kSeg] = static_cast<const float*>(seg);
   for (int t = 0; t < n_tags; ++t)
-    cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
-  const RangePlan plan = range_plan(1, n, column_count(cols), 0);
-  return launch_chunks(segment_tags_kernel, plan, stream, cols, n_tags, n,
+    in.cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
+  const RangePlan plan = range_plan(1, n, column_count(in.cols), 0, 0, 1);
+  return launch_chunks(segment_tags_kernel, plan, stream, in, n_tags, n,
                        num_segments, plan.chunk, plan.tile,
                        static_cast<float*>(out));
-}
-
-// The plan of a chunk kernel's launch, for the tests: out = {points per
-// block, points per tile, blocks, dynamic shared memory bytes}.
-extern "C" int ndtpu_range_plan(int batch, int n, int n_cols, int slots,
-                                long long* out) {
-  const RangePlan plan = range_plan(batch, n, n_cols, slots);
-  out[0] = plan.chunk;
-  out[1] = plan.tile;
-  out[2] = plan.blocks;
-  out[3] = static_cast<long long>(plan.smem);
-  return 0;
 }
 
 extern "C" int ndtpu_segment_sum(const void* seg, const void* feats, int batch,
@@ -702,14 +908,36 @@ extern "C" int ndtpu_segment_sum(const void* seg, const void* feats, int batch,
                                  void* stream) {
   if (batch < 0 || n < 0 || f < 1 || num_segments < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int col_tiles = (f + 31) / 32;
-  const long long blocks =
-      static_cast<long long>(batch) * num_segments * col_tiles;
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  segment_sum_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seg), static_cast<const float*>(feats), n, f,
-      num_segments, col_tiles, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // nothing to sum, no grid: the wrapper returns zeros without a call
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  const SumPlan p = sum_plan(batch, n, f);
+  const RowStage in = {static_cast<const int*>(seg),
+                       static_cast<const float*>(feats), f, p.pitch, 0, 0};
+  if (p.width <= 16)
+    return launch_chunks(segment_sum_kernel<16>, p.range, stream, in, p.width,
+                         n, num_segments, p.range.chunk, p.range.tile,
+                         static_cast<float*>(out));
+  return launch_chunks(segment_sum_kernel<32>, p.range, stream, in, p.width, n,
+                       num_segments, p.range.chunk, p.range.tile,
+                       static_cast<float*>(out));
+}
+
+// The plans of the launches, for the tests. ndtpu_range_plan (K1, K3):
+// out = {points per block, points per tile, blocks, dynamic shared memory
+// bytes}; ndtpu_sum_plan (K2): the same, then {width, pitch, column
+// groups}.
+extern "C" int ndtpu_range_plan(int batch, int n, int n_cols, int slots,
+                                long long* out) {
+  write_plan(range_plan(batch, n, n_cols, slots, 0, 1), out);
+  return 0;
+}
+
+extern "C" int ndtpu_sum_plan(int batch, int n, int f, long long* out) {
+  const SumPlan p = sum_plan(batch, n, f);
+  write_plan(p.range, out);
+  out[4] = p.width;
+  out[5] = p.pitch;
+  out[6] = p.range.groups;
+  return 0;
 }

@@ -46,6 +46,19 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
+def compile_source(src: Path, out: Path, *flags: str) -> str:
+    """nvcc ``src`` into the shared library ``out`` (with ``flags`` after
+    the port's own); returns what the compiler printed."""
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) for {src.name}:\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless a library of the same hash exists."""
     out = library_path(source)
@@ -53,13 +66,7 @@ def build(source: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) for {source}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+    compile_source(_CSRC / source, tmp)
     os.replace(tmp, out)
     return out
 

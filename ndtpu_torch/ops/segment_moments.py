@@ -10,11 +10,12 @@ Ports of the three Pallas kernels of
 - ``segment_sum_sorted`` (``_kernel``, K2): the generic sorted segment sum.
 
 The kernels are ``ndtpu_torch/csrc/segment_moments.cu``; its comments say
-how each is laid out and what bounds it on an H100. K1 and K3 stream
-chunks of points through shared memory; ``range_plan`` mirrors how the
-source sizes their launch. Each wrapper checks its inputs, launches its
-kernel on the current stream for CUDA tensors (counting the launch in its
-``launches`` attribute) and runs its plain version only for CPU tensors.
+how each is laid out and what bounds it on an H100. All three stream
+chunks of points through shared memory; ``range_plan`` and ``sum_plan``
+mirror how the source sizes their launch. Each wrapper checks its inputs,
+launches its kernel on the current stream for CUDA tensors (counting the
+launch in its ``launches`` attribute) and runs its plain version only for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,36 +29,78 @@ from ndtpu_torch.ops import _build
 
 SOURCE = "segment_moments.cu"
 MAX_TAGS = 8  # NDTPU_MAX_TAGS in the source
-SUM_BLOCK = 256  # kBlock in the source: threads per segment of the sum kernel
 N_MOMENTS = 13
-# the chunk kernels (K1, K3); the names in the source are in brackets
+# the chunk kernels; the names in the source are in brackets
 RANGE_WARPS = 4                       # warps per block (kRangeWarps)
 RANGE_THREADS = 32 * RANGE_WARPS
 STAGE_BYTES = 32 * 1024               # a stage's columns, at most (kStageBytes)
 MIN_TILE, MAX_TILE = 256, 1024        # points per tile (kMinTile, kMaxTile)
 MIN_CHUNK, CHUNK_STEP = 512, 256      # points per block (kMinChunk, kChunkStep)
-TARGET_BLOCKS = 384                   # (kTargetBlocks)
+SMS = 132                             # an H100 SXM's (kSMs)
+BLOCKS_PER_SM = 3                     # the most the plan keeps resident (kBlocksPerSM)
+SMEM_PER_SM = 228 * 1024              # an SM's shared memory (kSmemPerSM)
+SMEM_RESERVED = 1024                  # what the card keeps per block (kSmemReserved)
+MAX_SMEM = 227 * 1024                 # a block's dynamic shared memory (kMaxSmem)
+GROUP_WIDTH = 32                      # K2: columns of a column group (kGroupWidth)
 
 
-def range_plan(batch: int, n: int, n_cols: int, slots: int = 0):
+def range_plan(batch: int, n: int, n_cols: int, slots: int = 0,
+               carry: int = 0, groups: int = 1):
     """The launch of a chunk kernel, as ``range_plan`` in the source
     computes it: (points per block, points per tile, blocks, dynamic
     shared memory bytes).
 
-    The chunk is the batch's points over TARGET_BLOCKS (about 3 blocks
-    for each of the card's 132 SMs), rounded up to a multiple of CHUNK_STEP,
-    at least MIN_CHUNK; the tile the largest power of two from MIN_TILE to
-    MAX_TILE whose ``n_cols`` staged columns fit STAGE_BYTES. Shared
-    memory holds two stages of ``n_cols`` columns of tile + 8 floats, each
-    warp's per-lane class histogram (``slots`` columns of 32) and a tile's
-    run starts."""
-    per_block = -(-batch * n // TARGET_BLOCKS)
-    chunk = max(MIN_CHUNK, -(-per_block // CHUNK_STEP) * CHUNK_STEP)
+    The tile is the largest power of two from MIN_TILE to MAX_TILE whose
+    ``n_cols`` staged columns fit STAGE_BYTES. Shared memory holds two
+    stages of ``n_cols`` columns of tile + 8 floats, each warp's per-lane
+    class histogram (``slots`` columns of 32), K2's carry (two buffers of
+    ``carry`` columns of 32) and a tile's run starts. The grid has a block
+    per chunk of every cloud and column group (``groups``, K2 only), one
+    wave of the blocks the card keeps resident (BLOCKS_PER_SM on each SM,
+    fewer where their shared memory does not fit): each cloud and group
+    gets an equal share, the chunk is a cloud's points over its share,
+    rounded up to a multiple of CHUNK_STEP, at least MIN_CHUNK.
+    """
     tile = MAX_TILE
     while tile > MIN_TILE and n_cols * tile * 4 > STAGE_BYTES:
         tile //= 2
-    smem = 4 * (2 * n_cols * (tile + 8) + RANGE_WARPS * slots * 32) + 4 * tile
-    return chunk, tile, batch * -(-n // chunk), smem
+    smem = (4 * (2 * n_cols * (tile + 8)
+                 + 32 * (RANGE_WARPS * slots + 2 * carry)) + 4 * tile)
+    fit = SMEM_PER_SM // (smem + SMEM_RESERVED)
+    resident = SMS * max(1, min(BLOCKS_PER_SM, fit))
+    share = max(1, resident // (batch * groups))
+    per_chunk = -(-n // share)
+    chunk = max(MIN_CHUNK, -(-per_chunk // CHUNK_STEP) * CHUNK_STEP)
+    return chunk, tile, batch * groups * -(-n // chunk), smem
+
+
+def unit_pitch(width: int):
+    """Floats a staged row of ``width`` floats takes in 16-byte units: 4 x
+    an odd number of units, at least those of the row after a lead of up
+    to 3 floats (``unit_pitch`` in the source)."""
+    return 4 * (((width + 6) >> 2) | 1)
+
+
+def sum_plan(batch: int, n: int, f: int):
+    """K2's launch, as ``sum_plan`` in the source computes it: the
+    ``range_plan`` of its staged columns (the ids and ``pitch`` floats a
+    row), then (width, pitch, groups): the columns a block sums, the floats
+    between staged rows, the column groups of the grid.
+
+    Whole rows (width F) where two stages of them fit a block at the
+    smallest tile, else groups of GROUP_WIDTH columns. Whole rows of
+    F % 4 != 0 floats keep pitch F, the contiguous span they are (lanes
+    reading one column of 32 consecutive rows meet at most 2-way bank
+    conflicts); any other layout stages each row in the 16-byte units that
+    hold it, at a pitch of an odd number of units (``unit_pitch``: at most
+    4-way conflicts; pitch 32 would put all 32 lanes on one bank)."""
+    width, pitch, groups = f, (f if f % 4 else unit_pitch(f)), 1
+    plan = range_plan(batch, n, 1 + pitch, carry=width)
+    if plan[3] > MAX_SMEM:
+        width, groups = GROUP_WIDTH, -(-f // GROUP_WIDTH)
+        pitch = unit_pitch(width)
+        plan = range_plan(batch, n, 1 + pitch, carry=width, groups=groups)
+    return plan + (width, pitch, groups)
 
 
 def segment_sum_sorted_plain(feats, seg_ids, num_segments: int):
@@ -131,81 +174,75 @@ def segment_tags_sorted_plain(seg_ids, tags, num_segments: int):
 
 def segment_tags_error_bound(seg_ids, tags, num_segments: int):
     """Bound on the tags kernel's f32 rounding error, per output entry
-    (f64). Its order is K1's (``fused_moments_error_bound``) without the
-    products: (ceil(L/32) + 5) * 2**-24 * sum|terms| for a run of L rows,
-    one term of slack, 0 for an empty row. Under the callers' precondition (at most one
-    nonzero in a run) every sum is exact and the error is 0."""
-    cols = torch.stack([t.double().abs() for t in tags], dim=-1)
-    mag = segment_sum_sorted_plain(cols, seg_ids, num_segments)
-    rows = segment_sum_sorted_plain(torch.ones_like(cols[..., :1]), seg_ids,
-                                    num_segments)
-    return (torch.ceil(rows / 32) + 5) * 2.0**-24 * mag
+    (f64): its order is the sum kernel's (``segment_sum_error_bound``).
+    Under the callers' precondition (at most one nonzero in a run) every
+    sum is exact and the error is 0."""
+    return segment_sum_error_bound(torch.stack(tuple(tags), dim=-1), seg_ids,
+                                   num_segments)
 
 
 def segment_sum_error_bound(feats, seg_ids, num_segments: int):
-    """Bound on the sum kernel's f32 rounding error, per output entry (f64).
+    """Bound on the sum kernel's (and the tags kernel's) f32 rounding
+    error, per output entry (f64).
 
-    In a tile of w columns (tiles of 32) the kernel's block of SUM_BLOCK
-    threads sums g = SUM_BLOCK // w row groups of ceil(L / g) terms each,
-    in order, then adds the g partial sums, so to first order
-    |kernel - exact| <= (ceil(L / g) + g) * 2**-24 * sum|terms| for a
-    segment of L rows; the bound adds one more term for slack."""
-    f = feats.shape[-1]
-    width = torch.tensor([min(32, f - 32 * (c // 32)) for c in range(f)],
-                         dtype=torch.float64, device=feats.device)
-    groups = torch.floor(SUM_BLOCK / width)
+    Their order is K1's (``fused_moments_error_bound``) without the
+    products: lane l of a run's warp adds the rows at offset l modulo 32
+    from the run's first row, in index order, at most m = ceil(L/32) terms
+    for a run of L rows, whatever the tiles, column groups or passes; a
+    fixed 5-level combine then adds the lanes. To first order that errs by
+    at most (m - 1 + 5) u sum|terms| (u = 2**-24); the bound takes
+    (ceil(L/32) + 5) u sum|terms|, one term of slack, and is 0 for an
+    empty row."""
     mag = segment_sum_sorted_plain(feats.double().abs(), seg_ids, num_segments)
     rows = segment_sum_sorted_plain(
         torch.ones_like(feats[..., :1], dtype=torch.float64), seg_ids,
         num_segments)
-    return (torch.ceil(rows / groups) + groups + 1) * 2.0**-24 * mag
+    return (torch.ceil(rows / 32) + 5) * 2.0**-24 * mag
 
 
-def _bind(name, argtypes):
-    fn = getattr(_build.load(SOURCE), name)
+_PTR, _INT, _OUT = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+# the source's C entries and their arguments
+ENTRIES = {
+    "ndtpu_segment_moments": [_PTR] * 6               # seg, xt, yt, zt, v, cls
+    + [ctypes.POINTER(_PTR)]                          # tag column pointers
+    + [_INT] * 5                                      # n_tags, batch, n, K, slots
+    + [_PTR, _PTR],                                   # out, stream
+    "ndtpu_segment_tags": [_PTR, ctypes.POINTER(_PTR)]  # seg, tags
+    + [_INT] * 3 + [_PTR, _PTR],                      # n_tags, n, K; out, stream
+    "ndtpu_segment_sum": [_PTR, _PTR]                 # seg, feats
+    + [_INT] * 4 + [_PTR, _PTR],                      # batch, n, F, K; out, stream
+    "ndtpu_range_plan": [_INT] * 4 + [_OUT],
+    "ndtpu_sum_plan": [_INT] * 3 + [_OUT],
+}
+
+
+def bind(lib, name):
+    """Entry ``name`` of a library built from the source, typed."""
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    fn.argtypes = ENTRIES[name]
     return fn
 
 
 @functools.cache
-def _kernel():
-    """Build (at first use) and bind the moments kernel's C entry point."""
-    return _bind("ndtpu_segment_moments",
-                 [ctypes.c_void_p] * 6                  # seg, xt, yt, zt, v, cls
-                 + [ctypes.POINTER(ctypes.c_void_p)]    # tag column pointers
-                 + [ctypes.c_int] * 5                   # n_tags, batch, n, K, slots
-                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
-
-
-@functools.cache
-def _tags_kernel():
-    return _bind("ndtpu_segment_tags",
-                 [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]  # seg, tags
-                 + [ctypes.c_int] * 3                   # n_tags, n, K
-                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
-
-
-@functools.cache
-def _plan_entry():
-    return _bind("ndtpu_range_plan", [ctypes.c_int] * 4
-                 + [ctypes.POINTER(ctypes.c_longlong)])
+def _entry(name):
+    """Build the source (at first use) and bind its entry ``name``."""
+    return bind(_build.load(SOURCE), name)
 
 
 def kernel_range_plan(batch: int, n: int, n_cols: int, slots: int = 0):
-    """``range_plan`` as the built source computes it (needs nvcc): the
-    card's tests hold the Python mirror against it."""
+    """``range_plan`` as the built source computes it for K1 and K3 (needs
+    nvcc): the card's tests hold the Python mirror against it."""
     out = (ctypes.c_longlong * 4)()
-    _plan_entry()(batch, n, n_cols, slots, out)
+    _entry("ndtpu_range_plan")(batch, n, n_cols, slots, out)
     return tuple(out)
 
 
-@functools.cache
-def _sum_kernel():
-    return _bind("ndtpu_segment_sum",
-                 [ctypes.c_void_p, ctypes.c_void_p]     # seg, feats
-                 + [ctypes.c_int] * 4                   # batch, n, F, K
-                 + [ctypes.c_void_p, ctypes.c_void_p])  # out, stream
+def kernel_sum_plan(batch: int, n: int, f: int):
+    """``sum_plan`` as the built source computes it (needs nvcc)."""
+    out = (ctypes.c_longlong * 7)()
+    _entry("ndtpu_sum_plan")(batch, n, f, out)
+    return tuple(out)
 
 
 def _raise_on(err, name):
@@ -236,7 +273,7 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
         *[t.data_ptr() for t in tags]
     )
     stream = torch.cuda.current_stream(seg_ids.device).cuda_stream
-    err = _kernel()(
+    err = _entry("ndtpu_segment_moments")(
         seg_ids.data_ptr(), xt.data_ptr(), yt.data_ptr(), zt.data_ptr(),
         v.data_ptr(), cls.data_ptr() if slots else None, tag_ptrs,
         len(tags), batch, n, num_segments, slots, out.data_ptr(), stream,
@@ -322,9 +359,9 @@ def segment_tags_sorted(seg_ids, tags, num_segments: int):
     out = torch.empty((num_segments, len(tags)), dtype=torch.float32,
                       device=dev)
     ptrs = (ctypes.c_void_p * len(tags))(*[t.data_ptr() for t in tags])
-    err = _tags_kernel()(seg_ids.data_ptr(), ptrs, len(tags), shape[0],
-                         num_segments, out.data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry("ndtpu_segment_tags")(
+        seg_ids.data_ptr(), ptrs, len(tags), shape[0], num_segments,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "segment_tags")
     segment_tags_sorted.launches += 1
     return out
@@ -357,9 +394,9 @@ def segment_sum_sorted(feats, seg_ids, num_segments: int):
     if n * batch * num_segments == 0:  # nothing to sum: no launch
         return torch.zeros(out_shape, dtype=torch.float32, device=dev)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    err = _sum_kernel()(seg_ids.data_ptr(), feats.data_ptr(), batch, n, f,
-                        num_segments, out.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry("ndtpu_segment_sum")(
+        seg_ids.data_ptr(), feats.data_ptr(), batch, n, f, num_segments,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "segment_sum")
     segment_sum_sorted.launches += 1
     return out

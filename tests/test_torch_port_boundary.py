@@ -3,7 +3,8 @@
 ``ndtpu_torch`` imports torch and numpy, never jax, flax or ``ndtpu``
 (importing any ``ndtpu`` module runs ndtpu/__init__.py, which imports
 jax). Its entry points default to the card and raise where there is none,
-unless the caller asks for the CPU. chip_smoke.py follows the same rules.
+unless the caller asks for the CPU. chip_smoke.py and kernel_ab.py follow
+the same rules.
 """
 import ast
 import os
@@ -20,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ndtpu")
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "kernel_ab.py"]
 
 
 def test_port_sources_import_no_jax():

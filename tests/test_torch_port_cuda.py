@@ -35,7 +35,8 @@ def layout_ids(layout, b, n, k, rng):
     holds the whole cloud; "singletons": one point a segment; "edges": runs
     of EDGE_RUNS lengths in turn, the ids past k dropped; "gaps": the first
     third of the points on sorted ids with gaps (empty rows between and
-    after them), the rest a dropped tail."""
+    after them), the rest a dropped tail; "long": runs of 3000 points,
+    longer than a chunk, the ids past k dropped."""
     seg = np.zeros((b, n), np.int32)
     for i in range(b):
         if layout == "random":
@@ -51,6 +52,8 @@ def layout_ids(layout, b, n, k, rng):
             kept = n // 3
             seg[i, :kept] = np.sort(rng.integers(0, k - k // 4, kept))
             seg[i, kept:] = k + np.sort(rng.integers(0, 5, n - kept))
+        elif layout == "long":
+            seg[i] = np.minimum(np.arange(n) // 3000, k)
         else:  # "one"
             seg[i] = 0
     return seg
@@ -117,13 +120,22 @@ def test_segment_moments_kernel_matches_plain(cuda, b, n, k, slots, layout,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n,n_cols,slots", [
-    (16, 70000, 8, 0), (1, 1 << 20, 8, 1), (1, 1 << 20, 5, 0),
-    (3, 20000, 14, 29), (1, 1, 1, 0), (64, 1 << 22, 9, 3),
+@pytest.mark.parametrize("batch,n,n_cols,slots,f", [
+    (16, 70000, 8, 0, None), (1, 1 << 20, 8, 1, None), (1, 1 << 20, 5, 0, None),
+    (3, 20000, 14, 29, None), (1, 1, 1, 0, None), (64, 1 << 22, 9, 3, None),
+    # K2: the giant oracle, the canonical batch's 41 and 42 columns, one
+    # column, a multiple of 32, the widest whole rows, column groups
+    (1, 1 << 20, None, 0, 14), (16, 70000, None, 0, 41),
+    (16, 70000, None, 0, 42), (1000, 2000, None, 0, 1),
+    (1, 1 << 20, None, 0, 32), (1, 1 << 20, None, 0, 95),
+    (1, 1 << 20, None, 0, 96), (4, 50000, None, 0, 1024),
 ])
-def test_range_plan_matches_source(cuda, batch, n, n_cols, slots):
-    assert sm.kernel_range_plan(batch, n, n_cols, slots) == \
-        sm.range_plan(batch, n, n_cols, slots)
+def test_range_plan_matches_source(cuda, batch, n, n_cols, slots, f):
+    if f is None:
+        assert sm.kernel_range_plan(batch, n, n_cols, slots) == \
+            sm.range_plan(batch, n, n_cols, slots)
+        return
+    assert sm.kernel_sum_plan(batch, n, f) == sm.sum_plan(batch, n, f)
 
 
 @pytest.mark.cuda
@@ -201,22 +213,37 @@ def test_segment_tags_kernel_matches_plain(cuda, n, k, n_tags, dropped,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,n,k,f,dropped", [
-    ((), 300000, 2100, 14, 0), ((), 20000, 500, 42, 9), ((2,), 5000, 64, 33, 7),
-    ((), 1000, 1, 1, 0), ((3,), 37, 30, 16, 0),
+@pytest.mark.parametrize("lead,n,k,f,layout,offset", [
+    ((), 300000, 2100, 14, "ranks", 0), ((), 20000, 500, 42, "ranks", 0),
+    ((2,), 5000, 64, 33, "ranks", 0), ((), 1000, 1, 1, "ranks", 0),
+    ((3,), 37, 30, 16, "ranks", 0),
+    ((), 200000, 2504, 32, "ranks", 0),      # pitch 32: the bank-conflict case
+    ((16,), 70000, 1209, 41, "random", 0),   # the canonical batch's width
+    ((2,), 20000, 300, 256, "ranks", 0),     # column groups
+    ((), 9000, 40, 1000, "edges", 0),        # groups, a narrow last one
+    ((), 300000, 80, 14, "long", 0),         # runs longer than a chunk
+    ((4,), 60000, 700, 41, "gaps", 0),       # empty rows, long dropped tail
+    ((16,), 4096, 4000, 14, "singletons", 0),
+    ((2,), 50000, 180, 41, "edges", 0),      # runs across tile/chunk edges
+    ((), 100000, 900, 14, "random", 1),      # rows not 16-byte aligned
+    ((), 100000, 900, 32, "random", 3),
 ])
-def test_segment_sum_kernel_matches_plain(cuda, lead, n, k, f, dropped):
+def test_segment_sum_kernel_matches_plain(cuda, lead, n, k, f, layout, offset):
     rng = np.random.default_rng(n + f)
-    seg = np.stack([ranks(n, k, dropped, rng)
-                    for _ in range(int(np.prod(lead)))]).reshape(lead + (n,))
-    seg = torch.from_numpy(seg).to(cuda)
-    feats = torch.from_numpy(rng.normal(size=lead + (n, f))
-                             .astype(np.float32)).to(cuda)
+    b = int(np.prod(lead))
+    if layout == "ranks":
+        seg = np.stack([ranks(n, k, 9 if f > 32 else 0, rng) for _ in range(b)])
+    else:
+        seg = layout_ids(layout, b, n, k, rng)
+    seg = torch.from_numpy(seg.reshape(lead + (n,))).to(cuda)
+    values = rng.normal(size=b * n * f + offset).astype(np.float32)
+    # a contiguous view `offset` floats into its storage
+    feats = torch.from_numpy(values).to(cuda)[offset:].view(lead + (n, f))
     before = sm.segment_sum_sorted.launches
     out = sm.segment_sum_sorted(feats, seg, k)
     again = sm.segment_sum_sorted(feats, seg, k)
     torch.cuda.synchronize()
-    assert sm.segment_sum_sorted.launches == before + 2
+    assert sm.segment_sum_sorted.launches == before + 2  # one launch a call
     assert torch.equal(out, again)  # a fixed summation order
     ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, k)
     bound = sm.segment_sum_error_bound(feats, seg, k)
