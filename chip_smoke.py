@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ndtpu_torch serving and giant-cloud paths on one NVIDIA card
-and check them.
+"""Drive the ndtpu_torch serving, giant-cloud and training paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -40,6 +40,17 @@ Phases, each of which ends the script with a non-zero exit on failure:
    single-device segment_moments (K2) on the same sorted cloud; the
    accepted size against the single-device fast search; a stage split;
    and the second-stage ndt_prune to 1040.
+5. Training (bench.py --train, tools/train.py): K1 held against its plain
+   version and timed on the training batch's real tagged inputs (M 2080,
+   29 class slots: [16, 70000] -> [16, 2504, 45]); one train step of the
+   same weights on the card and on the CPU; the trainer CLI in this
+   process at TrainConfig's full width (B 16, N 70000, M 2080, 28
+   classes, feature_dim 768, probe, int labels): an epoch of 2 steps, val
+   and test evals and a checkpoint, then an epoch resumed from it (steps
+   2 -> 4), every loss finite and every cloud converged with 2080 NDs;
+   then 5 timed steps on bench.py's batch with one K1 launch each, the
+   host syncs of a step (only the preprocessing's), a stage split and the
+   device share.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -48,7 +59,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -66,7 +80,12 @@ from ndtpu_torch.ops import _build
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel import point_sharded as ps
+from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.serve import SegmentationPipeline
+from ndtpu_torch.tools import train as train_cli
+from ndtpu_torch.train import loop as train_loop
+from ndtpu_torch.train.loop import make_ndt_seg_step
+from ndtpu_torch.train.state import create_train_state
 
 B, N, M, C, F = 16, 70000, 1000, 28, 768
 K = ndt.max_segments(M)              # kernel rows: k_max (ids >= K dropped)
@@ -117,23 +136,29 @@ def dense_rank_inputs(slots, seed):
                 slots=slots, k=K)
 
 
-def canonical_inputs(points):
-    """The kernel's inputs for the canonical batch, from the port's own
-    limits, probe, search-and-sort and moment-input stages."""
+def canonical_inputs(points, m=M, labels=None):
+    """The kernel's inputs for a batch reduced to m NDs, from the port's
+    own limits, probe, search-and-sort and moment-input stages: untagged,
+    or tagged with int labels [B, N] in C + 1 class slots (the training
+    path)."""
     px, py, pz = (points[..., a].contiguous() for a in range(3))
     mask = torch.ones(px.shape, dtype=torch.bool, device=points.device)
-    classes = torch.zeros(px.shape, dtype=torch.int32, device=points.device)
+    tagged = labels is not None
+    classes = (labels.to(torch.int32) if tagged else
+               torch.zeros(px.shape, dtype=torch.int32, device=points.device))
+    k = ndt.max_segments(m)
     mins, maxs = ndt._limits(px, py, pz, mask)
     env = ndt._min_packable_voxel_size(mins, maxs)
-    seed = ndt._probe_seed_size(px, py, pz, mask, M, mins, maxs, env)
+    seed = ndt._probe_seed_size(px, py, pz, mask, m, mins, maxs, env)
     size, _, cols = ndt._search_and_sort_fast(
-        px, py, pz, mask, classes, M, mins, maxs, env, tagged=False,
+        px, py, pz, mask, classes, m, mins, maxs, env, tagged=tagged,
         size0_override=seed,
     )
     lens, offsets = voxel.estimate_voxel_grid(mins, maxs, size)
-    inp = ndt._moment_inputs(cols, size, lens, offsets, K, tagged=False)
-    return dict(xt=inp["xt"], yt=inp["yt"], zt=inp["zt"], v=inp["v"], cls=None,
-                seg=inp["seg"], tags=list(inp["tags"]), slots=0, k=K)
+    inp = ndt._moment_inputs(cols, size, lens, offsets, k, tagged=tagged)
+    return dict(xt=inp["xt"], yt=inp["yt"], zt=inp["zt"], v=inp["v"],
+                cls=inp["cls"], seg=inp["seg"], tags=list(inp["tags"]),
+                slots=C + 1 if tagged else 0, k=k)
 
 
 def run_kernel(x):
@@ -686,8 +711,9 @@ def giant_stages(points, group):
 
 
 def device_share(fn):
-    """torch.profiler over one fn(): (kernels, device busy ms, wall ms,
-    the 5 kernel names with the most device time and their ms)."""
+    """torch.profiler over one fn(): (kernels and copies, device busy ms,
+    wall ms, the 5 kernel names with the most device time and their
+    ms)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -699,7 +725,10 @@ def device_share(fn):
     by_name = collections.Counter()
     n = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels and copies; a user annotation's range on the card (e.g.
+        # the optimizer's step) spans kernels counted already
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             by_name[e.name[:60]] += e.time_range.elapsed_us()
             n += 1
     top = [(k, v / 1e3) for k, v in by_name.most_common(5)]
@@ -817,6 +846,280 @@ def giant_phase():
     return launches[0], k1_err, k1_giant, lines
 
 
+# ---- training ----
+
+TRAIN_M = 2080                       # TrainConfig's n_desired_nds
+TRAIN_K = ndt.max_segments(TRAIN_M)  # K1 rows on the training path
+TRAIN_STEPS = 5                      # timed steps after one warm-up
+TRAIN_LR = 1e-3                      # bench.py bench_train's optax.adam(1e-3)
+TRAIN_OUT = "build/chip_smoke_train"
+# the card-vs-CPU step: eight example_cloud clouds (seeds without a 2- or
+# 3-point voxel at 16 NDs) of 1024 points, 4 classes, feature_dim 32.
+# Eight, not fewer: BatchNorm over the B rows of a TNet's FC layers is
+# ill-conditioned for few rows (at B = 4 the CPU's own f32 gradients lie
+# up to 1e-1 of a leaf's largest from float64; at B = 8, 2e-5)
+SMALL_SEEDS = (1, 5, 6, 7, 8, 9, 10, 21)
+SMALL_N, SMALL_M, SMALL_C, SMALL_F = 1024, 16, 4, 32
+STEP_RTOL = 1e-4                     # loss, running statistics (atol 1e-5)
+GRAD_TOL = 1e-3                      # of a leaf's largest |grad|
+
+
+def train_batch():
+    """bench.py bench_train's batch on the card: make_batch(16, 70000,
+    seed=0) and int labels default_rng(1).integers(0, 28)."""
+    points = torch.from_numpy(make_batch(B, N, seed=0)).cuda()
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        0, C, (B, N)).astype(np.int32)).cuda()
+    return points, labels
+
+
+def small_step_check():
+    """One train step of the same TrainState (weights from seed 0) on the
+    card and on the CPU: one K1 launch on the card and none on the CPU,
+    metrics on the step's device. The loss and the BN running statistics
+    agree to STEP_RTOL, the accuracy to one ND, every gradient leaf to
+    GRAD_TOL of its largest |grad| (leaves whose largest is below 1e-6 of
+    the model's are f32 noise: the biases in front of a BatchNorm), and the
+    parameters to 1e-6 where |grad| >= GRAD_TOL of the leaf's largest:
+    Adam's first update is lr * sign(grad), and a sign inside the rounding
+    error of the two devices' sums is noise."""
+    pts = np.stack([example_cloud(1, SMALL_N, seed=s)[0] for s in SMALL_SEEDS])
+    labels = (1 + (pts[..., 0] > 0) + 2 * (pts[..., 1] > 0)).astype(np.int32)
+    counts = ndt_preprocessing_with_state(
+        SMALL_M, torch.from_numpy(pts), None, SMALL_C, search="reference")[4].counts
+    if bool(((counts == 2) | (counts == 3)).any()):
+        raise AssertionError("small train batch has a 2/3-point voxel")
+    step, _ = make_ndt_seg_step(SMALL_M, SMALL_C, "reference")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(SMALL_C, SMALL_F, lambda _: TRAIN_LR,
+                                   device=dev)
+        before = sm.fused_moments_sorted.launches
+        state, m = step(state, torch.from_numpy(pts).to(dev),
+                        torch.from_numpy(labels).to(dev))
+        launched = sm.fused_moments_sorted.launches - before
+        if launched != (dev == "cuda") or m["loss"].device.type != dev:
+            raise AssertionError(f"train step on {dev}: {launched} K1 launches, "
+                                 f"loss on {m['loss'].device}")
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in state.model.named_parameters()},
+                    {n: b.cpu() for n, b in state.model.named_buffers()})
+    (mg, pg, bg), (mc, pc, bc) = out["cuda"], out["cpu"]
+    if abs(mg["loss"] - mc["loss"]) > STEP_RTOL * abs(mc["loss"]):
+        raise AssertionError(f"train step: loss {mg['loss']} card, {mc['loss']} CPU")
+    if abs(mg["accuracy"] - mc["accuracy"]) > 1 / (len(SMALL_SEEDS) * SMALL_M):
+        raise AssertionError("train step: accuracy differs card vs CPU")
+    for name, ref in bc.items():
+        torch.testing.assert_close(bg[name], ref, rtol=STEP_RTOL, atol=1e-5)
+    gmax = max(float(g.abs().max()) for _, g in pc.values())
+    compared = 0
+    for name, (p_cpu, g_cpu) in pc.items():
+        p_gpu, g_gpu = pg[name]
+        leaf = float(g_cpu.abs().max())
+        if leaf < 1e-6 * gmax:
+            continue
+        if float((g_gpu - g_cpu).abs().max()) > GRAD_TOL * leaf:
+            raise AssertionError(f"train step: grad of {name} differs card vs CPU")
+        keep = g_cpu.abs() >= GRAD_TOL * leaf
+        torch.testing.assert_close(p_gpu[keep], p_cpu[keep], rtol=0, atol=1e-6)
+        compared += int(keep.sum())
+    print(f"train small step: card == CPU (loss {mg['loss']:.6f} / "
+          f"{mc['loss']:.6f}; {compared} parameters compared)")
+
+
+class PrepRecorder:
+    """Records, inside the trainer, each preprocessing call's converged
+    flags and smallest kept-ND count as device tensors, read after the
+    run (no host sync added to the steps)."""
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = train_loop.ndt_preprocessing_with_state
+
+        def prep(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.calls.append((out[4].converged.all(), out[3].sum(-1).min()))
+            return out
+
+        train_loop.ndt_preprocessing_with_state = prep
+        return self
+
+    def __exit__(self, *exc):
+        train_loop.ndt_preprocessing_with_state = self.saved
+
+
+def run_trainer(args):
+    """ndtpu_torch.tools.train.main in this process, its stdout echoed.
+    Returns (state, stdout, the logged JSON lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train_cli.main(args)
+    out = buf.getvalue()
+    print(out, end="")
+    return state, out, [json.loads(line) for line in out.splitlines()
+                        if line.startswith("{")]
+
+
+def trainer_check():
+    """The trainer CLI at TrainConfig's full width (B 16, N 70000, M 2080,
+    28 classes, feature_dim 768, probe, int labels, Adam at 0.034) over 32
+    synthetic clouds a split: one epoch (2 train steps, 2 val and 2 test
+    evals, a checkpoint), then one more resumed from that checkpoint.
+    Every logged loss finite, the steps 2 -> 4, every cloud of every
+    preprocessing converged with 2080 NDs. Returns the run's seconds."""
+    t0 = time.perf_counter()
+    args = ["--synthetic_length", "32", "--epochs", "1", "--save_every", "1",
+            "--out_path", TRAIN_OUT]
+    with PrepRecorder() as rec:
+        state, out, logs = run_trainer(args)
+        if state.step != 2:
+            raise AssertionError(f"trainer: step {state.step} after 1 epoch")
+        ckpt = out.split("saved checkpoint to ")[1].split()[0]
+        state, out, resumed = run_trainer(args + ["--resume", ckpt])
+        if f"resumed from {ckpt} at step 2" not in out or state.step != 4:
+            raise AssertionError(f"trainer: resume ended at step {state.step}")
+    losses = [v for log in logs + resumed for k, v in log.items() if "loss" in k]
+    if len(losses) != 12 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"trainer: logged losses {losses}")
+    if len(rec.calls) != 12:  # (2 train + 2 val + 2 test) a run
+        raise AssertionError(f"trainer: {len(rec.calls)} preprocessings")
+    converged = torch.stack([c for c, _ in rec.calls])
+    kept = torch.stack([k for _, k in rec.calls])
+    if not bool(converged.all()) or not bool((kept == TRAIN_M).all()):
+        raise AssertionError("trainer: a cloud did not converge to 2080 NDs")
+    seconds = time.perf_counter() - t0
+    mean = {k.split("_")[0]: [log[k] for log in (logs + resumed) if k in log]
+            for k in ("train_mean_loss", "val_mean_loss", "test_mean_loss")}
+    print(f"trainer: 2 epochs (the 2nd resumed at step 2), 12 "
+          f"preprocessings converged with {TRAIN_M} NDs, mean losses (epoch "
+          "1, 2): " + "; ".join(f"{k} {v[0]:.6g}, {v[1]:.6g}"
+                                 for k, v in mean.items())
+          + f"; clouds/s {logs[0]['clouds_per_s']} / "
+          f"{resumed[0]['clouds_per_s']}; {seconds:.1f} s")
+    return seconds
+
+
+def train_stages(step, state, points, labels):
+    """One call of the train step with a CUDA event at each boundary of its
+    stages, recorded by hooks on the model and the optimizer: the forward's
+    start ends the preprocessing, its end the forward; the optimizer's
+    step starts after the loss and the backward. A stage includes any wait
+    of the card for the host."""
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    hooks = [
+        state.model.register_forward_pre_hook(lambda *_: mark("preprocessing")),
+        state.model.register_forward_hook(lambda *_: mark("forward")),
+        state.optimizer.register_step_pre_hook(
+            lambda *_: mark("loss + backward")),
+        state.optimizer.register_step_post_hook(lambda *_: mark("optimizer")),
+    ]
+    torch.cuda.synchronize()
+    try:
+        mark("start")
+        step(state, points, labels)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    names = [name for name, _ in marks]
+    if names != ["start", "preprocessing", "forward", "loss + backward",
+                 "optimizer"]:
+        raise AssertionError(f"train stages: marks {names}")
+    return {name: marks[i][1].elapsed_time(e)
+            for i, (name, e) in enumerate(marks[1:])}
+
+
+def timed_steps(points, labels):
+    """bench.py bench_train on the card: one warm-up step, then
+    TRAIN_STEPS timed with CUDA events, each with finite metrics and one
+    K1 launch. Returns (median ms, K1 launches)."""
+    state = create_train_state(C, F, lambda _: TRAIN_LR)
+    step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
+    launches = sm.fused_moments_sorted.launches
+    state, _ = step(state, points, labels)
+    lat, host = [], []
+    for i in range(TRAIN_STEPS):
+        before = sm.fused_moments_sorted.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, points, labels)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        lat.append(start.elapsed_time(end))
+        if sm.fused_moments_sorted.launches - before != 1:
+            raise AssertionError(f"train step {i}: K1 launched "
+                                 f"{sm.fused_moments_sorted.launches - before} times")
+        loss, acc = float(m["loss"]), float(m["accuracy"])
+        if not (math.isfinite(loss) and 0 <= acc <= 1):
+            raise AssertionError(f"train step {i}: loss {loss}, accuracy {acc}")
+        print(f"train step {i}: {lat[-1]:.3f} ms (events), {host[-1]:.3f} ms "
+              f"(host), loss {loss:.4f}, accuracy {acc:.4f}")
+    launches = sm.fused_moments_sorted.launches - launches
+
+    syncs = count_syncs(lambda: step(state, points, labels))
+    prep_syncs = count_syncs(lambda: ndt_preprocessing_with_state(
+        TRAIN_M, points, labels, C, search="probe"))
+    if syncs != prep_syncs:
+        raise AssertionError(f"train step: {syncs} host syncs, the "
+                             f"preprocessing alone {prep_syncs}")
+    stages = [train_stages(step, state, points, labels)
+              for _ in range(TRAIN_STEPS)]
+    split = {k: statistics.median(r[k] for r in stages) for k in stages[0]}
+    torch.cuda.reset_peak_memory_stats()
+    n_kernels, busy_ms, wall_ms, top = device_share(
+        lambda: step(state, points, labels))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(lat)
+    print(f"train: median {med:.3f} ms/step (events), "
+          f"{statistics.median(host):.3f} ms (host), {B / med * 1e3:.1f} "
+          f"clouds/s over {TRAIN_STEPS} steps; {syncs} host syncs flagged per "
+          f"step (the preprocessing's {prep_syncs}); 1 K1 launch per step")
+    print(f"train stages (median of {TRAIN_STEPS}, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"train profile: {n_kernels} kernels, device busy {busy_ms:.3f} ms "
+          f"of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}), peak "
+          f"memory {peak_gb:.2f} GB; most device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    return med, launches
+
+
+def train_phase():
+    """K1 checked and timed on the training batch's real tagged inputs;
+    the card-vs-CPU step; the trainer CLI with a resume; the timed steps.
+    Returns (K1 launches on the training path, K1's max_abs_err and timing
+    keys at the training shape)."""
+    t0 = time.perf_counter()
+    points, labels = train_batch()
+    x = canonical_inputs(points, TRAIN_M, labels)
+    if x["k"] != TRAIN_K or x["slots"] != C + 1:
+        raise AssertionError("training inputs: wrong K or slots")
+    err = check_kernel(x, f"training batch (M {TRAIN_M}, {C + 1} slots)")
+    times = k1_times(x, "training batch")
+    del x
+    small_step_check()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    trainer_check()
+    cli_launches = sm.fused_moments_sorted.launches
+    if cli_launches != 12:
+        raise AssertionError(f"trainer: {cli_launches} K1 launches, expected 12")
+    _, step_launches = timed_steps(points, labels)
+    if step_launches != TRAIN_STEPS + 1:
+        raise AssertionError(f"timed steps: {step_launches} K1 launches")
+    print(f"train phase took {time.perf_counter() - t0:.1f} s")
+    return cli_launches + step_launches, err, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -832,11 +1135,14 @@ def main() -> int:
     # after serving: the requests meet the card as the K1 phase left it
     k2_canonical = k2_batch(real)
     giant_launches, giant_err, giant_times, k3_k2 = giant_phase()
-    # K1's launches on both main paths; its giant-shape times ride along,
-    # as K2's canonical-batch times ride along with its giant entry
-    k1["launches"] = served + giant_launches
-    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err)
+    train_launches, train_err, train_times = train_phase()
+    # K1's launches on the three main paths; its giant- and training-shape
+    # times ride along, as K2's canonical-batch times ride along with its
+    # giant entry
+    k1["launches"] = served + giant_launches + train_launches
+    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err)
     k1["giant"] = giant_times
+    k1["train"] = train_times
     k2 = k3_k2[1]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}

@@ -1,0 +1,82 @@
+"""Host-side input pipeline (port of ``ndtpu/data/loader.py``): a batch
+iterator over an indexable dataset, an in-memory sample cache, and a
+one-batch-ahead device prefetcher.
+
+The prefetcher copies each batch from pinned host memory with
+``non_blocking=True``, so the copy of batch i + 1 is queued behind step i
+and the host does not wait for it.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
+                   seed: int = 0) -> Iterator:
+    """Yields tuples of stacked numpy arrays, samples fetched on a pool of
+    4 threads; a last partial batch is dropped. The order is
+    ``np.random.default_rng(seed).shuffle(arange(n))`` when shuffling, as
+    in the JAX loader, so a seed gives the same batches."""
+    n = len(dataset)
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+
+    def fetch(i):
+        return dataset[int(i)]
+
+    with cf.ThreadPoolExecutor(max_workers=4) as pool:
+        for start in range(0, n - batch_size + 1, batch_size):
+            idxs = order[start:start + batch_size]
+            samples = list(pool.map(fetch, idxs))
+            yield tuple(np.stack([s[k] for s in samples])
+                        for k in range(len(samples[0])))
+
+
+class CachedDataset:
+    """Caches each sample of an indexable dataset after its first fetch
+    (samples are deterministic per index, so later epochs skip the
+    generation or parsing)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+        self._cache = {}
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        hit = self._cache.get(i)
+        if hit is None:
+            hit = self._cache[i] = self.ds[i]
+        return hit
+
+
+def to_device(batch, device):
+    """numpy arrays -> tensors on ``device``; on the card through pinned
+    host memory with a non-blocking copy."""
+    dev = torch.device(device)
+    out = []
+    for a in batch:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(dev, non_blocking=True))
+    return tuple(out)
+
+
+def prefetch_to_device(it: Iterable, device) -> Iterator:
+    """Yield the batches of ``it`` as device tensors, the next one's copy
+    issued before the current one is handed out."""
+    pending = None
+    for batch in it:
+        nxt = to_device(batch, device)
+        if pending is not None:
+            yield pending
+        pending = nxt
+    if pending is not None:
+        yield pending

@@ -13,6 +13,8 @@ Mapping (flax auto-names, in creation order):
   NDTNet:  TNet_0 = t1, TNet_1 = t2, Dense_0..2 = conv1..3, BatchNorm_0..2
   NDTNetSegmentation: NDTNet_0 = feature_extractor, Dense_0..3 = conv1..4,
            BatchNorm_0..2 = bn1..3
+The same mapping carries a JAX train state's Adam moments
+(``load_jax_train_state``).
 """
 from __future__ import annotations
 
@@ -30,54 +32,94 @@ def _copy(dst: torch.Tensor, src):
     dst.copy_(src)
 
 
-def _linear(lin, p):
-    _copy(lin.weight, np.asarray(p["kernel"]).T)
-    _copy(lin.bias, p["bias"])
-
-
-def _bn(bn, p, s):
-    _copy(bn.weight, p["scale"])
-    _copy(bn.bias, p["bias"])
-    _copy(bn.running_mean, s["mean"])
-    _copy(bn.running_var, s["var"])
-
-
 def _layers(model, params, stats, linears, norms):
+    """(tensor, flax leaf) pairs of a module's Dense and BatchNorm layers,
+    kernels transposed; the running statistics too unless stats is
+    None."""
     for i, name in enumerate(linears):
-        _linear(getattr(model, name), params[f"Dense_{i}"])
+        lin, p = getattr(model, name), params[f"Dense_{i}"]
+        yield lin.weight, np.asarray(p["kernel"]).T
+        yield lin.bias, p["bias"]
     for i, name in enumerate(norms):
-        _bn(getattr(model, name), params[f"BatchNorm_{i}"],
-            stats[f"BatchNorm_{i}"])
+        bn, p = getattr(model, name), params[f"BatchNorm_{i}"]
+        yield bn.weight, p["scale"]
+        yield bn.bias, p["bias"]
+        if stats is not None:
+            s = stats[f"BatchNorm_{i}"]
+            yield bn.running_mean, s["mean"]
+            yield bn.running_var, s["var"]
+
+
+def _sub(stats, name):
+    return None if stats is None else stats[name]
 
 
 def _tnet(m, params, stats):
-    _layers(m, params, stats, ["conv1", "conv2", "conv3", "fc1", "fc2", "fc3"],
-            ["bn1", "bn2", "bn3", "bn4", "bn5"])
+    yield from _layers(m, params, stats,
+                       ["conv1", "conv2", "conv3", "fc1", "fc2", "fc3"],
+                       ["bn1", "bn2", "bn3", "bn4", "bn5"])
 
 
 def _ndtnet(m, params, stats):
-    _tnet(m.t1, params["TNet_0"], stats["TNet_0"])
-    _tnet(m.t2, params["TNet_1"], stats["TNet_1"])
-    _layers(m, params, stats, ["conv1", "conv2", "conv3"],
-            ["bn1", "bn2", "bn3"])
+    yield from _tnet(m.t1, params["TNet_0"], _sub(stats, "TNet_0"))
+    yield from _tnet(m.t2, params["TNet_1"], _sub(stats, "TNet_1"))
+    yield from _layers(m, params, stats, ["conv1", "conv2", "conv3"],
+                       ["bn1", "bn2", "bn3"])
+
+
+def _pairs(model, params, stats):
+    """Every (port tensor, flax leaf) pair of ``model``; the BatchNorm
+    buffers only when ``stats`` is given."""
+    if isinstance(model, NDTNetSegmentation):
+        yield from _ndtnet(model.feature_extractor, params["NDTNet_0"],
+                           _sub(stats, "NDTNet_0"))
+        yield from _layers(model, params, stats,
+                           ["conv1", "conv2", "conv3", "conv4"],
+                           ["bn1", "bn2", "bn3"])
+    elif isinstance(model, NDTNet):
+        yield from _ndtnet(model, params, stats)
+    elif isinstance(model, TNet):
+        yield from _tnet(model, params, stats)
+    else:
+        raise TypeError(f"no flax mapping for {type(model).__name__}")
 
 
 def load_jax_variables(model, variables):
     """Fill ``model`` (TNet, NDTNet or NDTNetSegmentation) in place from
     the flax variables of its JAX counterpart. Returns the model."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
     with torch.no_grad():
-        if isinstance(model, NDTNetSegmentation):
-            _ndtnet(model.feature_extractor, params["NDTNet_0"],
-                    stats["NDTNet_0"])
-            _layers(model, params, stats,
-                    ["conv1", "conv2", "conv3", "conv4"],
-                    ["bn1", "bn2", "bn3"])
-        elif isinstance(model, NDTNet):
-            _ndtnet(model, params, stats)
-        elif isinstance(model, TNet):
-            _tnet(model, params, stats)
-        else:
-            raise TypeError(f"no flax mapping for {type(model).__name__}")
+        for dst, src in _pairs(model, variables["params"],
+                               variables.get("batch_stats", {})):
+            _copy(dst, src)
     return model
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def load_jax_train_state(state, jax_state):
+    """Fill the port's ``TrainState`` (ndtpu_torch.train.state) in place
+    from a JAX ``TrainState`` of ``optax.adam(schedule)`` given as numpy
+    (``jax.tree_util.tree_map(np.asarray, state)``, or a dict with its
+    fields): params and batch_stats as ``load_jax_variables``; the opt
+    state ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``
+    as Adam's ``exp_avg`` (mu) and ``exp_avg_sq`` (nu), Dense kernels
+    transposed like the weights, and each parameter's ``step`` (count);
+    the step itself. Returns the state."""
+    model, opt = state.model, state.optimizer
+    load_jax_variables(model, {"params": _field(jax_state, "params"),
+                               "batch_stats": _field(jax_state, "batch_stats")})
+    adam = _field(jax_state, "opt_state")[0]
+    count = float(np.asarray(_field(adam, "count")))
+    mu = _pairs(model, _field(adam, "mu"), None)
+    nu = _pairs(model, _field(adam, "nu"), None)
+    with torch.no_grad():
+        for (p, m), (_, v) in zip(mu, nu):
+            exp_avg, exp_avg_sq = torch.empty_like(p), torch.empty_like(p)
+            _copy(exp_avg, m)
+            _copy(exp_avg_sq, v)
+            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                            "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+    state.step = int(np.asarray(_field(jax_state, "step")))
+    return state

@@ -1,0 +1,31 @@
+"""Shared helpers of the port's tools (port of ``tools/_common.py``):
+the trainer's datasets."""
+from __future__ import annotations
+
+import numpy as np
+
+from ndtpu_torch.data.synthetic import SyntheticSeg
+
+
+class IntLabels:
+    """Adapter: (points, one-hot gt [N, C+1]) -> (points, tags [N] int32),
+    the trainer's default ground-truth input (C+1 times fewer bytes to the
+    card; the preprocessing gives the same one-hot either way)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        pts, gt = self.ds[i]
+        return pts, np.argmax(gt, axis=-1).astype(np.int32)
+
+
+def make_dataset(n_classes, n_samples, synthetic_length=32, seed=0,
+                 int_labels=False):
+    """The synthetic segmentation set (``SyntheticSeg``); the CARLA reader
+    of the JAX tools waits for the data slice (ROADMAP queue 0 item 6)."""
+    ds = SyntheticSeg(n_classes, n_samples, length=synthetic_length, seed=seed)
+    return IntLabels(ds) if int_labels else ds

@@ -1,0 +1,127 @@
+"""The trainer's config (port of ``ndtpu/train/config.py``): the same flag
+names and defaults, the same ``from_args`` (``--flag/--no-flag`` for
+bools), plus ``--device`` (default ``cuda``; the tests ask for ``cpu``).
+
+A flag the port cannot honour yet makes ``validate()`` raise with the
+ROADMAP item that will port it; none is ignored quietly. Two fields are
+read by no segmentation trainer, here or in the JAX package:
+``n_desired_nds1`` (the multiscale trainer's) and ``steps_per_epoch``
+(the trainer derives it from the dataset).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from ndtpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # reference flags (tools/train.py:99-112)
+    task: str = "segmentation"
+    n_desired_nds: int = 2080
+    n_samples: int = 70000
+    train_path: Optional[str] = None
+    val_path: Optional[str] = None
+    test_path: Optional[str] = None
+    out_path: str = "out"
+    epochs: int = 200
+    save_every: int = 2
+    batch_size: int = 16
+    learning_rate: float = 0.034
+    n_classes: int = 28
+    feature_dim: int = 768
+
+    n_desired_nds1: int = 4080
+
+    # halve the rate every lr_decay_epochs epochs
+    lr_decay_epochs: int = 20
+    lr_decay_rate: float = 0.5
+
+    resume: Optional[str] = None          # checkpoint dir to resume from
+    wandb: bool = False
+    wandb_project: str = "ndnet"
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    use_pallas: str = "auto"
+    # voxel-size search: probe, fast or reference (see core/ndt.py)
+    search: str = "probe"
+    # ground truth as [B, N] int32 class tags instead of one-hot [B, N, C+1]
+    int_labels: bool = True
+    # search each sample's voxel size once, then train with it fixed
+    streaming: bool = False
+    data_axis: str = "data"
+    seed: int = 0
+    synthetic_length: int = 32            # clouds per synthetic split
+    cache_dataset: bool = True            # keep fetched samples in host RAM
+    device_cache: bool = False
+    epoch_scan: bool = True
+    steps_per_epoch: Optional[int] = None
+
+    coordinator: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+
+    # the port's own: the card unless the caller asks for the CPU
+    device: str = "cuda"
+
+    def validate(self):
+        if self.search not in ("fast", "probe", "reference", "grid"):
+            raise ValueError(
+                f"--search must be fast|probe|reference|grid, got {self.search!r}"
+            )
+        waits = [
+            ("classification" in self.task,
+             "--task classification waits for ROADMAP queue 0 item 3"),
+            (any((self.train_path, self.val_path, self.test_path)),
+             "--train_path/--val_path/--test_path (CarlaSeg) wait for ROADMAP "
+             "queue 0 item 6 (data); leave them unset for the synthetic set"),
+            (self.search == "grid",
+             "--search grid waits for ROADMAP queue 0 item 4"),
+            (self.use_pallas != "auto",
+             "--use_pallas: the tensors' device picks the route (the CUDA "
+             "kernel on the card); only 'auto' is accepted"),
+            ((self.compute_dtype, self.param_dtype) != ("float32", "float32"),
+             "--compute_dtype/--param_dtype other than float32 wait for "
+             "ROADMAP queue 1 item 8 (open: non-float32 dtypes)"),
+            (self.device_cache,
+             "--device_cache (with --epoch_scan) waits for ROADMAP queue 1 "
+             "item 8 (open: DeviceCachedDataset, make_epoch_scan)"),
+            (self.num_processes > 1 or self.coordinator is not None
+             or self.data_axis != "data",
+             "multi-process / mesh flags wait for ROADMAP queue 1 item 15 "
+             "(data parallelism with SyncBatchNorm)"),
+        ]
+        for bad, why in waits:
+            if bad:
+                raise NotImplementedError(why)
+        resolve_device(self.device)
+        return self
+
+    @classmethod
+    def from_args(cls, argv=None):
+        """argparse overlay with the reference's flag names and defaults."""
+        import argparse
+        import typing
+
+        hints = typing.get_type_hints(cls)
+
+        def base_type(t):
+            args = [a for a in typing.get_args(t) if a is not type(None)]
+            return args[0] if args else t
+
+        parser = argparse.ArgumentParser()
+        for f in dataclasses.fields(cls):
+            t = base_type(hints[f.name])
+            if t is bool:
+                parser.add_argument(
+                    f"--{f.name}", action=argparse.BooleanOptionalAction,
+                    default=f.default,
+                )
+            elif t in (int, float, str):
+                parser.add_argument(f"--{f.name}", type=t, default=f.default)
+            else:
+                parser.add_argument(f"--{f.name}", type=str, default=f.default)
+        ns = parser.parse_args(argv)
+        return cls(**vars(ns)).validate()

@@ -1,0 +1,93 @@
+"""Train and eval steps of NDT-Net segmentation (port of
+``ndtpu/train/loop.py``).
+
+A step is the JAX step's sequence in eager PyTorch: the NDT preprocessing
+without a gradient (on the card one segment-moments kernel launch, tagged
+with the ground truth's class slots), the train-mode forward to logits,
+softmax cross-entropy from logits over the kept NDs, the backward, and one
+Adam update at the schedule's rate. Metrics come back as device scalars:
+nothing in the step after the preprocessing waits for the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
+
+
+def make_lr_schedule(base_lr: float, steps_per_epoch: int,
+                     decay_epochs: int = 20, decay_rate: float = 0.5):
+    """Staircase decay, ``optax.exponential_decay(staircase=True)``: count
+    -> base_lr * decay_rate ** (count // max(1, decay_epochs *
+    steps_per_epoch)), in float32 as optax evaluates it. The count is the
+    optimizer's step before the update."""
+    transition = max(1, decay_epochs * steps_per_epoch)
+
+    def schedule(count: int) -> float:
+        p = np.float32(count // transition)
+        return float(np.float32(base_lr) * np.power(np.float32(decay_rate), p))
+
+    return schedule
+
+
+def cross_entropy_loss(logits, onehot, mask=None):
+    """Mean softmax cross-entropy over the (optionally masked) rows; the
+    masked mean divides by max(sum(mask), 1)."""
+    ce = -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    if mask is None:
+        return ce.mean()
+    denom = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, ce, 0.0).sum() / denom
+
+
+def accuracy(logits, onehot, mask=None):
+    """Fraction of rows whose argmax (the first maximum) matches the
+    ground truth's."""
+    hit = (logits.argmax(-1) == onehot.argmax(-1)).to(torch.float32)
+    if mask is None:
+        return hit.mean()
+    denom = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, hit, 0.0).sum() / denom
+
+
+def make_ndt_seg_step(n_desired_nds: int, n_classes: int,
+                      search: str = "fast"):
+    """(step, eval_step) for NDTNetSegmentation.
+
+    ``step(state, points, gt, *voxel_sizes) -> (state, metrics)`` and
+    ``eval_step(state, points, gt, *voxel_sizes) -> metrics``. points [B,
+    N, 3]; gt the one-hot [B, N, C+1] or int class tags [B, N]; an optional
+    trailing [B] of voxel sizes skips the search (the streaming regime).
+    ``state`` is a ``TrainState`` (ndtpu_torch.train.state), updated in
+    place. metrics: {"loss", "accuracy"} as device scalars.
+    """
+
+    def prep(points, gt, voxel_sizes=None):
+        with torch.no_grad():
+            return ndt_preprocessing_with_state(
+                n_desired_nds, points, gt, n_classes, search=search,
+                fixed_voxel_sizes=voxel_sizes,
+            )
+
+    def step(state, points, gt, *voxel_sizes):
+        pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
+        model = state.model.train()
+        logits = model(pcl, covs, return_logits=True)
+        loss = cross_entropy_loss(logits, onehot, mask)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            acc = accuracy(logits, onehot, mask)
+        return state, {"loss": loss.detach(), "accuracy": acc}
+
+    def eval_step(state, points, gt, *voxel_sizes):
+        pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
+        model = state.model.eval()
+        with torch.no_grad():
+            logits = model(pcl, covs, return_logits=True)
+            return {"loss": cross_entropy_loss(logits, onehot, mask),
+                    "accuracy": accuracy(logits, onehot, mask)}
+
+    return step, eval_step

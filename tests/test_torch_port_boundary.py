@@ -64,10 +64,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ndtpu_torch.serve import SegmentationPipeline, entry
     from ndtpu_torch.utils.device import resolve_device
 
+    from ndtpu_torch.tools.train import main as train_main
+    from ndtpu_torch.train.config import TrainConfig
+    from ndtpu_torch.train.loop import make_lr_schedule
+    from ndtpu_torch.train.state import create_train_state
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (entry, lambda: SegmentationPipeline(32, 4, 32),
                  lambda: NDTNetSegmentation(num_classes=4, feature_dim=32),
-                 lambda: empty_state(16), resolve_device, make_point_group):
+                 lambda: empty_state(16), resolve_device, make_point_group,
+                 lambda: create_train_state(4, 32, make_lr_schedule(1e-3, 1)),
+                 lambda: TrainConfig.from_args(["--device", "cuda"]),
+                 lambda: train_main(["--epochs", "1", "--n_samples", "64"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert resolve_device("cpu").type == "cpu"

@@ -6,6 +6,9 @@ test here skips without a card. This file imports neither jax nor
 
     python -m pytest tests/test_torch_port_cuda.py -q
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,11 @@ from ndtpu_torch.core.ndt import ndt_downsample
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel.point_sharded import make_point_sharded_downsample
+from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
+
+# the card checks shared with chip_smoke.py, at the repo's root
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -299,3 +307,39 @@ def test_giant_downsample_nccl_matches_gloo_cpu(cuda):
         assert torch.equal(getattr(gpu[4], name).cpu(), getattr(cpu[4], name)), name
     assert torch.equal(gpu[3].cpu(), cpu[3])
     torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_moments_kernel_on_tagged_training_inputs(cuda):
+    """K1 with 29 class slots on the real tagged sorted inputs of a small
+    training batch (chip_smoke's inputs and check: counts, class histogram
+    and tags exact, sums within twice the f32 bound of the float64 plain
+    version, two launches bit-identical); and the tagged preprocessing's
+    class histograms equal the CPU's."""
+    rng = np.random.default_rng(3)
+    centres = rng.uniform(-10, 10, size=(4, 40, 1, 3))
+    pts = (centres + rng.normal(scale=0.4, size=(4, 40, 501, 3))
+           ).reshape(4, -1, 3)[:, :20000].astype(np.float32)
+    labels = rng.integers(0, 28, (4, 20000)).astype(np.int32)
+    x = chip_smoke.canonical_inputs(torch.from_numpy(pts).cuda(), 500,
+                                    torch.from_numpy(labels).cuda())
+    assert x["slots"] == 29
+    assert chip_smoke.run_kernel(x).shape == (4, x["k"], 13 + 29 + 3)
+    chip_smoke.check_kernel(x, "tagged training inputs")
+    gpu = ndt_preprocessing_with_state(500, torch.from_numpy(pts).cuda(),
+                                       torch.from_numpy(labels).cuda(), 28,
+                                       search="fast")[4]
+    cpu = ndt_preprocessing_with_state(
+        500, torch.from_numpy(pts), torch.from_numpy(labels), 28,
+        fixed_voxel_sizes=gpu.voxel_size.cpu())[4]
+    assert torch.equal(gpu.class_hist.cpu(), cpu.class_hist)
+    assert torch.equal(gpu.counts.cpu(), cpu.counts)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the same TrainState on the card and on the CPU
+    (chip_smoke.small_step_check, which states the tolerances): eight
+    clouds without a 2- or 3-point voxel, one K1 launch on the card,
+    metrics as scalars on the step's device."""
+    chip_smoke.small_step_check()

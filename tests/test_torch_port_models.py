@@ -100,9 +100,16 @@ def test_tnet_matches_flax():
 
 
 def test_batchnorm_is_eval_only_and_loader_checks_shapes():
+    """Eval mode normalises with the running statistics; train mode (held
+    against the JAX module in tests/test_torch_port_train.py) normalises
+    with the batch's and moves the running ones. The loader refuses a
+    model of other shapes."""
     bn = BatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 4))
+    y = bn(torch.full((2, 4), 3.0))
+    assert torch.equal(y, torch.zeros(2, 4))
+    torch.testing.assert_close(bn.running_mean, torch.full((4,), 0.3))
+    torch.testing.assert_close(bn.running_var, torch.full((4,), 0.9))
+    bn.running_var.fill_(1.0)
     x = torch.randn(5, 4)
     bn.eval().running_mean.fill_(0.5)
     torch.testing.assert_close(bn(x), (x - 0.5) / torch.sqrt(torch.tensor(1.0 + 1e-5)))
