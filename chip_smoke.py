@@ -51,6 +51,22 @@ Phases, each of which ends the script with a non-zero exit on failure:
    then 5 timed steps on bench.py's batch with one K1 launch each, the
    host syncs of a step (only the preprocessing's), a stage split and the
    device share.
+6. Classification (tools/train.py --task classification): one step of the
+   same weights on the card and on the CPU; the trainer CLI at full width
+   (B 16, N 70000, M 1000, 40 classes, feature_dim 768, SyntheticCls): an
+   epoch of 2 steps with val and test evals and a checkpoint, then an
+   epoch resumed from it; 5 timed steps with one K1 launch each (untagged,
+   [16, 70000] -> K 1208), the host syncs of a step (only the
+   preprocessing's), a stage split and peak memory.
+7. NDT-Net++ (bench.py --multiscale, tools/train_multiscale.py): K1 held
+   against its plain version and timed on the fine batch's real tagged
+   inputs ([4, 70000] -> [4, 9800, 45], 29 class slots); 3 timed forward
+   requests (B 4, N 70000, fine 8160 and coarse 4080 NDs, 28 classes,
+   feature_dim 1024; two K1 launches each); one multiscale step card vs
+   CPU; 5 timed full-width train steps (two K1 launches each) with the
+   host syncs, a stage split (fine prep, coarse prep, forward, loss +
+   backward, optimizer) and peak memory; the multiscale trainer CLI at
+   its full width for an epoch of 8 steps and 8 val evals.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -75,16 +91,31 @@ import torch.distributed as dist
 
 from ndtpu_torch.core import moments, ndt, voxel
 from ndtpu_torch.core.kl import INT32_MAX
-from ndtpu_torch.data.synthetic import example_cloud, giant_cloud, make_batch
+from ndtpu_torch.data.synthetic import (
+    SyntheticCls,
+    example_cloud,
+    giant_cloud,
+    make_batch,
+)
+from ndtpu_torch.models import (
+    NDTNetClassification,
+    NDTNetPPSegmentation,
+    NDTNetSegmentation,
+)
 from ndtpu_torch.ops import _build
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
-from ndtpu_torch.serve import SegmentationPipeline
+from ndtpu_torch.serve import SegmentationPipeline, init_random_
 from ndtpu_torch.tools import train as train_cli
+from ndtpu_torch.tools import train_multiscale as train_multiscale_cli
 from ndtpu_torch.train import loop as train_loop
-from ndtpu_torch.train.loop import make_ndt_seg_step
+from ndtpu_torch.train.loop import (
+    make_classification_step,
+    make_multiscale_seg_step,
+    make_ndt_seg_step,
+)
 from ndtpu_torch.train.state import create_train_state
 
 B, N, M, C, F = 16, 70000, 1000, 28, 768
@@ -873,33 +904,40 @@ def train_batch():
     return points, labels
 
 
-def small_step_check():
-    """One train step of the same TrainState (weights from seed 0) on the
-    card and on the CPU: one K1 launch on the card and none on the CPU,
-    metrics on the step's device. The loss and the BN running statistics
-    agree to STEP_RTOL, the accuracy to one ND, every gradient leaf to
-    GRAD_TOL of its largest |grad| (leaves whose largest is below 1e-6 of
-    the model's are f32 noise: the biases in front of a BatchNorm), and the
+def small_batch(fine=SMALL_M, coarse=None):
+    """The card-vs-CPU steps' batch: SMALL_SEEDS' clouds and int labels in
+    1..4 by the signs of x and y, checked free of 2- and 3-point voxels
+    at ``fine`` (and ``coarse``) NDs."""
+    pts = np.stack([example_cloud(1, SMALL_N, seed=s)[0] for s in SMALL_SEEDS])
+    labels = (1 + (pts[..., 0] > 0) + 2 * (pts[..., 1] > 0)).astype(np.int32)
+    for m in (fine, coarse) if coarse else (fine,):
+        counts = ndt_preprocessing_with_state(
+            m, torch.from_numpy(pts), None, SMALL_C, search="reference")[4].counts
+        if bool(((counts == 2) | (counts == 3)).any()):
+            raise AssertionError(f"small train batch has a 2/3-point voxel at {m}")
+    return pts, labels
+
+
+def compare_step(label, step, make_state, batch, k1_per_step, rows):
+    """One train step of the same TrainState (``make_state(device)``,
+    weights from seed 0) on the card and on the CPU: ``k1_per_step`` K1
+    launches on the card and none on the CPU, metrics on the step's
+    device. The loss and the BN running statistics agree to STEP_RTOL,
+    the accuracy to one of its ``rows``, every gradient leaf to GRAD_TOL
+    of its largest |grad| (leaves whose largest is below 1e-6 of the
+    model's are f32 noise: the biases in front of a BatchNorm), and the
     parameters to 1e-6 where |grad| >= GRAD_TOL of the leaf's largest:
     Adam's first update is lr * sign(grad), and a sign inside the rounding
     error of the two devices' sums is noise."""
-    pts = np.stack([example_cloud(1, SMALL_N, seed=s)[0] for s in SMALL_SEEDS])
-    labels = (1 + (pts[..., 0] > 0) + 2 * (pts[..., 1] > 0)).astype(np.int32)
-    counts = ndt_preprocessing_with_state(
-        SMALL_M, torch.from_numpy(pts), None, SMALL_C, search="reference")[4].counts
-    if bool(((counts == 2) | (counts == 3)).any()):
-        raise AssertionError("small train batch has a 2/3-point voxel")
-    step, _ = make_ndt_seg_step(SMALL_M, SMALL_C, "reference")
     out = {}
     for dev in ("cuda", "cpu"):
-        state = create_train_state(SMALL_C, SMALL_F, lambda _: TRAIN_LR,
-                                   device=dev)
+        state = make_state(dev)
         before = sm.fused_moments_sorted.launches
-        state, m = step(state, torch.from_numpy(pts).to(dev),
-                        torch.from_numpy(labels).to(dev))
+        state, m = step(state, *(torch.from_numpy(a).to(dev) for a in batch))
         launched = sm.fused_moments_sorted.launches - before
-        if launched != (dev == "cuda") or m["loss"].device.type != dev:
-            raise AssertionError(f"train step on {dev}: {launched} K1 launches, "
+        want = k1_per_step if dev == "cuda" else 0
+        if launched != want or m["loss"].device.type != dev:
+            raise AssertionError(f"{label} on {dev}: {launched} K1 launches, "
                                  f"loss on {m['loss'].device}")
         out[dev] = ({k: float(v) for k, v in m.items()},
                     {n: (p.detach().cpu(), p.grad.cpu())
@@ -907,9 +945,9 @@ def small_step_check():
                     {n: b.cpu() for n, b in state.model.named_buffers()})
     (mg, pg, bg), (mc, pc, bc) = out["cuda"], out["cpu"]
     if abs(mg["loss"] - mc["loss"]) > STEP_RTOL * abs(mc["loss"]):
-        raise AssertionError(f"train step: loss {mg['loss']} card, {mc['loss']} CPU")
-    if abs(mg["accuracy"] - mc["accuracy"]) > 1 / (len(SMALL_SEEDS) * SMALL_M):
-        raise AssertionError("train step: accuracy differs card vs CPU")
+        raise AssertionError(f"{label}: loss {mg['loss']} card, {mc['loss']} CPU")
+    if abs(mg["accuracy"] - mc["accuracy"]) > 1 / rows:
+        raise AssertionError(f"{label}: accuracy differs card vs CPU")
     for name, ref in bc.items():
         torch.testing.assert_close(bg[name], ref, rtol=STEP_RTOL, atol=1e-5)
     gmax = max(float(g.abs().max()) for _, g in pc.values())
@@ -920,18 +958,54 @@ def small_step_check():
         if leaf < 1e-6 * gmax:
             continue
         if float((g_gpu - g_cpu).abs().max()) > GRAD_TOL * leaf:
-            raise AssertionError(f"train step: grad of {name} differs card vs CPU")
+            raise AssertionError(f"{label}: grad of {name} differs card vs CPU")
         keep = g_cpu.abs() >= GRAD_TOL * leaf
         torch.testing.assert_close(p_gpu[keep], p_cpu[keep], rtol=0, atol=1e-6)
         compared += int(keep.sum())
-    print(f"train small step: card == CPU (loss {mg['loss']:.6f} / "
-          f"{mc['loss']:.6f}; {compared} parameters compared)")
+    print(f"{label}: card == CPU (loss {mg['loss']:.6f} / {mc['loss']:.6f}; "
+          f"{compared} parameters compared)")
+
+
+def small_state(model=NDTNetSegmentation, **model_kw):
+    """make_state for compare_step: the model at the small width."""
+    return lambda dev: create_train_state(SMALL_C, SMALL_F, lambda _: TRAIN_LR,
+                                          device=dev, model=model, **model_kw)
+
+
+def small_step_check():
+    """The segmentation train step card vs CPU (compare_step): one K1
+    launch on the card."""
+    step, _ = make_ndt_seg_step(SMALL_M, SMALL_C, "reference")
+    compare_step("train small step", step, small_state(), small_batch(), 1,
+                 len(SMALL_SEEDS) * SMALL_M)
+
+
+def small_cls_step_check():
+    """The classification train step card vs CPU (compare_step) on the
+    small batch with one-hot labels i % SMALL_C: one K1 launch on the
+    card, the accuracy to one cloud."""
+    pts, _ = small_batch()
+    onehot = np.eye(SMALL_C, dtype=np.float32)[np.arange(len(pts)) % SMALL_C]
+    step, _ = make_classification_step(SMALL_M, SMALL_C, "reference")
+    compare_step("classification small step", step,
+                 small_state(NDTNetClassification), (pts, onehot), 1, len(pts))
+
+
+def small_multiscale_step_check():
+    """The multiscale train step card vs CPU (compare_step) at fine
+    SMALL_M and coarse SMALL_M // 2 NDs: two K1 launches on the card."""
+    fine, coarse = SMALL_M, SMALL_M // 2
+    step, _ = make_multiscale_seg_step(fine, coarse, SMALL_C, "reference")
+    compare_step("multiscale small step", step,
+                 small_state(NDTNetPPSegmentation, fine_res=fine,
+                             coarse_res=coarse),
+                 small_batch(fine, coarse), 2, len(SMALL_SEEDS) * fine)
 
 
 class PrepRecorder:
     """Records, inside the trainer, each preprocessing call's converged
     flags and smallest kept-ND count as device tensors, read after the
-    run (no host sync added to the steps)."""
+    run (no host sync added to the steps), and the ND count it asked for."""
 
     def __enter__(self):
         self.calls = []
@@ -939,7 +1013,8 @@ class PrepRecorder:
 
         def prep(*args, **kw):
             out = self.saved(*args, **kw)
-            self.calls.append((out[4].converged.all(), out[3].sum(-1).min()))
+            self.calls.append((out[4].converged.all(), out[3].sum(-1).min(),
+                               args[0]))
             return out
 
         train_loop.ndt_preprocessing_with_state = prep
@@ -949,63 +1024,24 @@ class PrepRecorder:
         train_loop.ndt_preprocessing_with_state = self.saved
 
 
-def run_trainer(args):
-    """ndtpu_torch.tools.train.main in this process, its stdout echoed.
-    Returns (state, stdout, the logged JSON lines)."""
+def run_trainer(args, main):
+    """A trainer's main in this process, its stdout echoed. Returns
+    (state, stdout, the logged JSON lines)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        state = train_cli.main(args)
+        state = main(args)
     out = buf.getvalue()
     print(out, end="")
     return state, out, [json.loads(line) for line in out.splitlines()
                         if line.startswith("{")]
 
 
-def trainer_check():
-    """The trainer CLI at TrainConfig's full width (B 16, N 70000, M 2080,
-    28 classes, feature_dim 768, probe, int labels, Adam at 0.034) over 32
-    synthetic clouds a split: one epoch (2 train steps, 2 val and 2 test
-    evals, a checkpoint), then one more resumed from that checkpoint.
-    Every logged loss finite, the steps 2 -> 4, every cloud of every
-    preprocessing converged with 2080 NDs. Returns the run's seconds."""
-    t0 = time.perf_counter()
-    args = ["--synthetic_length", "32", "--epochs", "1", "--save_every", "1",
-            "--out_path", TRAIN_OUT]
-    with PrepRecorder() as rec:
-        state, out, logs = run_trainer(args)
-        if state.step != 2:
-            raise AssertionError(f"trainer: step {state.step} after 1 epoch")
-        ckpt = out.split("saved checkpoint to ")[1].split()[0]
-        state, out, resumed = run_trainer(args + ["--resume", ckpt])
-        if f"resumed from {ckpt} at step 2" not in out or state.step != 4:
-            raise AssertionError(f"trainer: resume ended at step {state.step}")
-    losses = [v for log in logs + resumed for k, v in log.items() if "loss" in k]
-    if len(losses) != 12 or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"trainer: logged losses {losses}")
-    if len(rec.calls) != 12:  # (2 train + 2 val + 2 test) a run
-        raise AssertionError(f"trainer: {len(rec.calls)} preprocessings")
-    converged = torch.stack([c for c, _ in rec.calls])
-    kept = torch.stack([k for _, k in rec.calls])
-    if not bool(converged.all()) or not bool((kept == TRAIN_M).all()):
-        raise AssertionError("trainer: a cloud did not converge to 2080 NDs")
-    seconds = time.perf_counter() - t0
-    mean = {k.split("_")[0]: [log[k] for log in (logs + resumed) if k in log]
-            for k in ("train_mean_loss", "val_mean_loss", "test_mean_loss")}
-    print(f"trainer: 2 epochs (the 2nd resumed at step 2), 12 "
-          f"preprocessings converged with {TRAIN_M} NDs, mean losses (epoch "
-          "1, 2): " + "; ".join(f"{k} {v[0]:.6g}, {v[1]:.6g}"
-                                 for k, v in mean.items())
-          + f"; clouds/s {logs[0]['clouds_per_s']} / "
-          f"{resumed[0]['clouds_per_s']}; {seconds:.1f} s")
-    return seconds
-
-
-def train_stages(step, state, points, labels):
+def train_stages(step, state, points, labels, preps):
     """One call of the train step with a CUDA event at each boundary of its
-    stages, recorded by hooks on the model and the optimizer: the forward's
-    start ends the preprocessing, its end the forward; the optimizer's
-    step starts after the loss and the backward. A stage includes any wait
-    of the card for the host."""
+    stages: after each preprocessing call (``preps`` names them, one a
+    call), then by hooks on the model and the optimizer, after the
+    forward, before the optimizer's step (the loss and the backward) and
+    after it. A stage includes any wait of the card for the host."""
     marks = []
 
     def mark(name):
@@ -1013,83 +1049,131 @@ def train_stages(step, state, points, labels):
         e.record()
         marks.append((name, e))
 
+    names = iter(preps)
+    saved = train_loop.ndt_preprocessing_with_state
+
+    def prep(*args, **kw):
+        out = saved(*args, **kw)
+        mark(next(names))
+        return out
+
     hooks = [
-        state.model.register_forward_pre_hook(lambda *_: mark("preprocessing")),
         state.model.register_forward_hook(lambda *_: mark("forward")),
         state.optimizer.register_step_pre_hook(
             lambda *_: mark("loss + backward")),
         state.optimizer.register_step_post_hook(lambda *_: mark("optimizer")),
     ]
+    train_loop.ndt_preprocessing_with_state = prep
     torch.cuda.synchronize()
     try:
         mark("start")
         step(state, points, labels)
         torch.cuda.synchronize()
     finally:
+        train_loop.ndt_preprocessing_with_state = saved
         for h in hooks:
             h.remove()
-    names = [name for name, _ in marks]
-    if names != ["start", "preprocessing", "forward", "loss + backward",
-                 "optimizer"]:
-        raise AssertionError(f"train stages: marks {names}")
+    got = [name for name, _ in marks]
+    if got != ["start", *preps, "forward", "loss + backward", "optimizer"]:
+        raise AssertionError(f"train stages: marks {got}")
     return {name: marks[i][1].elapsed_time(e)
             for i, (name, e) in enumerate(marks[1:])}
 
 
-def timed_steps(points, labels):
-    """bench.py bench_train on the card: one warm-up step, then
-    TRAIN_STEPS timed with CUDA events, each with finite metrics and one
-    K1 launch. Returns (median ms, K1 launches)."""
-    state = create_train_state(C, F, lambda _: TRAIN_LR)
-    step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
-    launches = sm.fused_moments_sorted.launches
-    state, _ = step(state, points, labels)
+def trainer_runs(label, main, args, resume):
+    """A trainer's ``main(args)`` in this process, then, with ``resume``,
+    once more from the checkpoint the first run saved. The resumed run
+    starts at the first run's step and ends at twice it; every logged loss
+    is finite; every cloud of every preprocessing converged with the NDs it
+    asked for. Returns (the runs' logged lines, the preprocessings, the
+    last step)."""
+    t0 = time.perf_counter()
+    runs = []
+    with PrepRecorder() as rec:
+        state, out, logs = run_trainer(args, main)
+        runs.append(logs)
+        first = state.step
+        if resume:
+            ckpt = out.split("saved checkpoint to ")[1].split()[0]
+            state, out, logs = run_trainer(args + ["--resume", ckpt], main)
+            runs.append(logs)
+            if (f"resumed from {ckpt} at step {first}" not in out
+                    or state.step != 2 * first):
+                raise AssertionError(f"{label}: resume ended at step {state.step}")
+    losses = [v for logs in runs for log in logs for k, v in log.items()
+              if "loss" in k]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: logged losses {losses}")
+    converged = torch.stack([c for c, _, _ in rec.calls])
+    short = torch.stack([kept - asked for _, kept, asked in rec.calls])
+    if not bool(converged.all()) or bool(short.any()):
+        raise AssertionError(f"{label}: a cloud did not converge to its NDs")
+    mean = {split: [log[f"{split}_mean_loss"] for logs in runs for log in logs
+                    if f"{split}_mean_loss" in log]
+            for split in ("train", "val", "test")}
+    print(f"{label}: {len(runs)} run(s), steps 0 -> {state.step}, "
+          f"{len(rec.calls)} preprocessings converged, mean losses by run: "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.6g}" for v in vs)
+                      for k, vs in mean.items() if vs)
+          + "; clouds/s " + " / ".join(str(logs[0]["clouds_per_s"])
+                                      for logs in runs)
+          + f"; {time.perf_counter() - t0:.1f} s")
+    return runs, len(rec.calls), state.step
+
+
+def timed_train(label, step, state, batch, k1_per_step, preps):
+    """A train step on the card: one warm-up, then TRAIN_STEPS timed with
+    CUDA events, each with finite metrics and ``k1_per_step`` K1 launches;
+    the host syncs of a step against those of its preprocessings alone
+    (``preps``: (stage name, NDs, ground truth or None) a call); the stage
+    split; peak memory. Returns (median ms, K1 launches of all of it)."""
+    k1 = sm.fused_moments_sorted
+    start_launches = k1.launches
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, *batch)
     lat, host = [], []
     for i in range(TRAIN_STEPS):
-        before = sm.fused_moments_sorted.launches
+        before = k1.launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        state, m = step(state, points, labels)
+        state, m = step(state, *batch)
         end.record()
         end.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         lat.append(start.elapsed_time(end))
-        if sm.fused_moments_sorted.launches - before != 1:
-            raise AssertionError(f"train step {i}: K1 launched "
-                                 f"{sm.fused_moments_sorted.launches - before} times")
+        if k1.launches - before != k1_per_step:
+            raise AssertionError(f"{label} step {i}: K1 launched "
+                                 f"{k1.launches - before} times")
         loss, acc = float(m["loss"]), float(m["accuracy"])
         if not (math.isfinite(loss) and 0 <= acc <= 1):
-            raise AssertionError(f"train step {i}: loss {loss}, accuracy {acc}")
-        print(f"train step {i}: {lat[-1]:.3f} ms (events), {host[-1]:.3f} ms "
+            raise AssertionError(f"{label} step {i}: loss {loss}, accuracy {acc}")
+        print(f"{label} step {i}: {lat[-1]:.3f} ms (events), {host[-1]:.3f} ms "
               f"(host), loss {loss:.4f}, accuracy {acc:.4f}")
-    launches = sm.fused_moments_sorted.launches - launches
-
-    syncs = count_syncs(lambda: step(state, points, labels))
-    prep_syncs = count_syncs(lambda: ndt_preprocessing_with_state(
-        TRAIN_M, points, labels, C, search="probe"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    syncs = count_syncs(lambda: step(state, *batch))
+    prep_syncs = sum(count_syncs(lambda: ndt_preprocessing_with_state(
+        m, batch[0], gt, C, search="probe")) for _, m, gt in preps)
     if syncs != prep_syncs:
-        raise AssertionError(f"train step: {syncs} host syncs, the "
-                             f"preprocessing alone {prep_syncs}")
-    stages = [train_stages(step, state, points, labels)
+        raise AssertionError(f"{label} step: {syncs} host syncs, its "
+                             f"preprocessings alone {prep_syncs}")
+    stages = [train_stages(step, state, *batch, preps=[n for n, _, _ in preps])
               for _ in range(TRAIN_STEPS)]
     split = {k: statistics.median(r[k] for r in stages) for k in stages[0]}
-    torch.cuda.reset_peak_memory_stats()
-    n_kernels, busy_ms, wall_ms, top = device_share(
-        lambda: step(state, points, labels))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = k1.launches - start_launches
+    want = k1_per_step * (2 + 2 * TRAIN_STEPS) + len(preps)
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} K1 launches, expected {want}")
     med = statistics.median(lat)
-    print(f"train: median {med:.3f} ms/step (events), "
-          f"{statistics.median(host):.3f} ms (host), {B / med * 1e3:.1f} "
+    batch_size = batch[0].shape[0]
+    print(f"{label}: median {med:.3f} ms/step (events), "
+          f"{statistics.median(host):.3f} ms (host), {batch_size / med * 1e3:.1f} "
           f"clouds/s over {TRAIN_STEPS} steps; {syncs} host syncs flagged per "
-          f"step (the preprocessing's {prep_syncs}); 1 K1 launch per step")
-    print(f"train stages (median of {TRAIN_STEPS}, ms): " + ", ".join(
+          f"step (the preprocessings' {prep_syncs}); {k1_per_step} K1 "
+          f"launch(es) per step; peak memory {peak_gb:.2f} GB")
+    print(f"{label} stages (median of {TRAIN_STEPS}, ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
-    print(f"train profile: {n_kernels} kernels, device busy {busy_ms:.3f} ms "
-          f"of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}), peak "
-          f"memory {peak_gb:.2f} GB; most device time: "
-          + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
     return med, launches
 
 
@@ -1109,15 +1193,185 @@ def train_phase():
     small_step_check()
     for kernel in KERNELS:
         kernel.launches = 0
-    trainer_check()
-    cli_launches = sm.fused_moments_sorted.launches
-    if cli_launches != 12:
-        raise AssertionError(f"trainer: {cli_launches} K1 launches, expected 12")
-    _, step_launches = timed_steps(points, labels)
-    if step_launches != TRAIN_STEPS + 1:
-        raise AssertionError(f"timed steps: {step_launches} K1 launches")
+    runs, preps, steps = trainer_runs(
+        "trainer", train_cli.main, ["--synthetic_length", "32", "--epochs",
+                                    "1", "--save_every", "1", "--out_path",
+                                    TRAIN_OUT], resume=True)
+    losses = sum(k.endswith("_loss") for logs in runs for log in logs for k in log)
+    if (steps, preps, losses, sm.fused_moments_sorted.launches) != (4, 12, 12, 12):
+        raise AssertionError(f"trainer: {steps} steps, {preps} preprocessings, "
+                             f"{losses} logged losses, "
+                             f"{sm.fused_moments_sorted.launches} K1 launches")
+    state = create_train_state(C, F, lambda _: TRAIN_LR)
+    step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
+    timed_train("train", step, state, (points, labels), 1,
+                [("preprocessing", TRAIN_M, labels)])
+    launches = sm.fused_moments_sorted.launches
+    n_kernels, busy_ms, wall_ms, top = device_share(
+        lambda: step(state, points, labels))
+    print(f"train profile: {n_kernels} kernels, device busy {busy_ms:.3f} ms "
+          f"of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}); most "
+          "device time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
     print(f"train phase took {time.perf_counter() - t0:.1f} s")
-    return cli_launches + step_launches, err, times
+    return launches, err, times
+
+
+# ---- classification and NDT-Net++ ----
+
+CLS_M, CLS_C = 1000, 40              # BASELINE.md's canonical run, ModelNet40's head
+CLS_OUT = "build/chip_smoke_cls"
+MS_B, MS_FINE, MS_COARSE, MS_F = 4, 8160, 4080, 1024  # bench.py --multiscale
+MS_K = ndt.max_segments(MS_FINE)     # K1 rows at the fine resolution
+MS_REQUESTS = 3
+MS_OUT = "build/chip_smoke_multiscale"
+
+
+def cls_batch():
+    """B SyntheticCls clouds of N points (seed 0) on the card, with their
+    labels one-hot over CLS_C classes."""
+    ds = SyntheticCls(N, length=B, seed=0)
+    pts = np.stack([ds[i][0] for i in range(B)])
+    onehot = np.eye(CLS_C, dtype=np.float32)[[ds[i][1] for i in range(B)]]
+    return torch.from_numpy(pts).cuda(), torch.from_numpy(onehot).cuda()
+
+
+def classification_phase():
+    """The classification step card vs CPU; then, counted, the trainer
+    CLI at full width (B 16, N 70000, M 1000, 40 classes, feature_dim 768,
+    SyntheticCls, Adam at 0.034): an epoch of 2 steps with val and test
+    evals and a checkpoint, then an epoch resumed from it; and the timed
+    steps (one K1 launch each). Returns K1's launches on this path."""
+    t0 = time.perf_counter()
+    small_cls_step_check()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    _, preps, _ = trainer_runs(
+        "classification trainer", train_cli.main,
+        ["--task", "classification", "--n_desired_nds", str(CLS_M),
+         "--n_classes", str(CLS_C), "--synthetic_length", "32", "--epochs",
+         "1", "--save_every", "1", "--out_path", CLS_OUT], resume=True)
+    if preps != 12 or sm.fused_moments_sorted.launches != 12:
+        raise AssertionError(f"classification trainer: {preps} preprocessings, "
+                             f"{sm.fused_moments_sorted.launches} K1 launches")
+    state = create_train_state(CLS_C, F, lambda _: TRAIN_LR,
+                               model=NDTNetClassification)
+    step, _ = make_classification_step(CLS_M, CLS_C, "probe")
+    timed_train("classification", step, state, cls_batch(), 1,
+                [("preprocessing", CLS_M, None)])
+    launches = sm.fused_moments_sorted.launches
+    print(f"classification phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def multiscale_request(model, points):
+    """bench.py's multiscale program: the fine and the coarse untagged
+    preprocessing, then the NDT-Net++ forward with its mid-forward prune.
+    Returns (logits, fine (state, mask), coarse (state, mask))."""
+    with torch.no_grad():
+        p1, c1, _, m1, s1 = ndt_preprocessing_with_state(
+            MS_FINE, points, None, C, search="probe")
+        p2, c2, _, m2, s2 = ndt_preprocessing_with_state(
+            MS_COARSE, points, None, C, search="probe")
+        return model(p1, c1, s1, p2, c2, return_logits=True), (s1, m1), (s2, m2)
+
+
+def multiscale_requests():
+    """bench.py --multiscale on the card: NDTNetPPSegmentation (28
+    classes, fine 8160, coarse 4080, feature_dim 1024, random weights)
+    answers a warm-up and MS_REQUESTS timed requests of 4 x 70000-point
+    clouds already on the card, each with finite [4, 8160, 29] logits,
+    every cloud converged with 8160 and 4080 NDs, and two K1 launches."""
+    model = init_random_(NDTNetPPSegmentation(
+        num_classes=C, fine_res=MS_FINE, coarse_res=MS_COARSE,
+        feature_dim=MS_F), 0).eval()
+    requests = [torch.from_numpy(make_batch(MS_B, N, seed=s)).cuda()
+                for s in range(1 + MS_REQUESTS)]
+    multiscale_request(model, requests[0])  # warm-up
+    lat = []
+    for i, pts in enumerate(requests[1:]):
+        before = sm.fused_moments_sorted.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        logits, (s1, m1), (s2, m2) = multiscale_request(model, pts)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        lat.append(start.elapsed_time(end))
+        label = f"multiscale request {i}"
+        if sm.fused_moments_sorted.launches - before != 2:
+            raise AssertionError(f"{label}: {sm.fused_moments_sorted.launches - before} "
+                                 "K1 launches, expected 2")
+        if tuple(logits.shape) != (MS_B, MS_FINE, C + 1):
+            raise AssertionError(f"{label}: logits {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        if not (bool(s1.converged.all()) and bool(s2.converged.all())):
+            raise AssertionError(f"{label}: a cloud did not converge")
+        if not (bool((m1.sum(-1) == MS_FINE).all())
+                and bool((m2.sum(-1) == MS_COARSE).all())):
+            raise AssertionError(f"{label}: wrong kept ND counts")
+        print(f"{label}: {lat[-1]:.3f} ms (events), {host_ms:.3f} ms (host), "
+              f"{MS_B / lat[-1] * 1e3:.2f} clouds/s")
+    syncs = count_syncs(lambda: multiscale_request(model, requests[1]))
+    med = statistics.median(lat)
+    print(f"multiscale forward: median {med:.3f} ms/request, "
+          f"{MS_B / med * 1e3:.2f} clouds/s; {syncs} host syncs flagged per "
+          "request; 2 K1 launches per request")
+
+
+def multiscale_phase():
+    """K1 held against its plain version and timed on the multiscale
+    fine batch's real tagged inputs ([4, 70000] -> [4, 9800, 45], 29 class
+    slots), and held at the path's other shapes (coarse tagged [4, 4904,
+    45], fine and coarse untagged [4, 9800, 16] and [4, 4904, 16]); the
+    multiscale step card vs CPU; then, counted, the forward
+    requests, the timed full-width train steps (two K1 launches each; the
+    stage split fine prep, coarse prep, forward, loss + backward,
+    optimizer) and the multiscale trainer CLI at its full width (B 4, N
+    70000, fine 8160, coarse 4080, 28 classes, feature_dim 1024) for an
+    epoch of 8 steps and 8 val evals. Returns (K1's launches on this path,
+    its max_abs_err and timing keys at the fine shape)."""
+    t0 = time.perf_counter()
+    points = torch.from_numpy(make_batch(MS_B, N, seed=1)).cuda()
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        0, C, (MS_B, N)).astype(np.int32)).cuda()
+    x = canonical_inputs(points, MS_FINE, labels)
+    if x["k"] != MS_K or x["slots"] != C + 1:
+        raise AssertionError("multiscale inputs: wrong K or slots")
+    err = check_kernel(x, f"multiscale fine batch (M {MS_FINE}, {C + 1} slots)")
+    times = k1_times(x, "multiscale fine batch")
+    del x
+    # the path's other K1 shapes: the step's coarse preprocessing (tagged)
+    # and a forward request's two (untagged)
+    for m, tags in ((MS_COARSE, labels), (MS_FINE, None), (MS_COARSE, None)):
+        kind = "untagged" if tags is None else f"{C + 1} slots"
+        err = max(err, check_kernel(canonical_inputs(points, m, tags),
+                                    f"multiscale batch (M {m}, {kind})"))
+    small_multiscale_step_check()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    multiscale_requests()
+    state = create_train_state(C, MS_F, lambda _: TRAIN_LR,
+                               model=NDTNetPPSegmentation, fine_res=MS_FINE,
+                               coarse_res=MS_COARSE)
+    step, _ = make_multiscale_seg_step(MS_FINE, MS_COARSE, C, "probe")
+    timed_train("multiscale", step, state, (points, labels), 2,
+                [("fine prep", MS_FINE, labels),
+                 ("coarse prep", MS_COARSE, labels)])
+    del state, step
+    before = sm.fused_moments_sorted.launches
+    _, preps, _ = trainer_runs("multiscale trainer", train_multiscale_cli.main,
+                            ["--epochs", "1", "--save_every", "1",
+                             "--out_path", MS_OUT], resume=False)
+    cli = sm.fused_moments_sorted.launches - before
+    if preps != 32 or cli != 32:  # (8 train + 8 val) x (fine + coarse)
+        raise AssertionError(f"multiscale trainer: {preps} preprocessings, "
+                             f"{cli} K1 launches")
+    launches = sm.fused_moments_sorted.launches
+    print(f"multiscale phase took {time.perf_counter() - t0:.1f} s")
+    return launches, err, times
 
 
 def main() -> int:
@@ -1136,13 +1390,17 @@ def main() -> int:
     k2_canonical = k2_batch(real)
     giant_launches, giant_err, giant_times, k3_k2 = giant_phase()
     train_launches, train_err, train_times = train_phase()
-    # K1's launches on the three main paths; its giant- and training-shape
-    # times ride along, as K2's canonical-batch times ride along with its
-    # giant entry
-    k1["launches"] = served + giant_launches + train_launches
-    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err)
+    cls_launches = classification_phase()
+    ms_launches, ms_err, ms_times = multiscale_phase()
+    # K1's launches on the five main paths; its giant-, training- and
+    # multiscale-shape times ride along, as K2's canonical-batch times ride
+    # along with its giant entry
+    k1["launches"] = (served + giant_launches + train_launches + cls_launches
+                      + ms_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err)
     k1["giant"] = giant_times
     k1["train"] = train_times
+    k1["multiscale"] = ms_times
     k2 = k3_k2[1]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}

@@ -13,6 +13,16 @@ Mapping (flax auto-names, in creation order):
   NDTNet:  TNet_0 = t1, TNet_1 = t2, Dense_0..2 = conv1..3, BatchNorm_0..2
   NDTNetSegmentation: NDTNet_0 = feature_extractor, Dense_0..3 = conv1..4,
            BatchNorm_0..2 = bn1..3
+  NDTNetClassification: NDTNet_0 = feature_extractor, Dense_0..2 = conv1..3
+  ResidualConnection: Dense_0 = conv1 (kernel [in_points, out_points]),
+           BatchNorm_0 = bn1
+  NDTNetPP: NDTNet_0 = ndtnet1, NDTNet_1 = ndtnet2 (one module, both
+           branches), ResidualConnection_0 = residual, Dense_0 = conv1,
+           BatchNorm_0 = bn1
+  NDTNetPPClassification: NDTNetPP_0 = feature_extractor, Dense_0..2 =
+           conv1..3
+  NDTNetPPSegmentation: NDTNetPP_0 = ndnet, ResidualConnection_0 =
+           residual, Dense_0..3 = conv1..4, BatchNorm_0..2 = bn1..3
 The same mapping carries a JAX train state's Adam moments
 (``load_jax_train_state``).
 """
@@ -21,7 +31,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ndtpu_torch.models.ndtnet import NDTNet, NDTNetSegmentation
+from ndtpu_torch.models.ndtnet import (
+    NDTNet,
+    NDTNetClassification,
+    NDTNetSegmentation,
+)
+from ndtpu_torch.models.ndtnetpp import (
+    NDTNetPP,
+    NDTNetPPClassification,
+    NDTNetPPSegmentation,
+    ResidualConnection,
+)
 from ndtpu_torch.models.tnet import TNet
 
 
@@ -67,26 +87,45 @@ def _ndtnet(m, params, stats):
                        ["bn1", "bn2", "bn3"])
 
 
+_SEG_HEAD = (["conv1", "conv2", "conv3", "conv4"], ["bn1", "bn2", "bn3"])
+_CLS_HEAD = (["conv1", "conv2", "conv3"], [])
+
+# model type -> (its submodules as (attribute, flax name), (its own
+# Linear names, its own BatchNorm names))
+_TREES = {
+    NDTNetSegmentation: ([("feature_extractor", "NDTNet_0")], _SEG_HEAD),
+    NDTNetClassification: ([("feature_extractor", "NDTNet_0")], _CLS_HEAD),
+    ResidualConnection: ([], (["conv1"], ["bn1"])),
+    NDTNetPP: ([("ndtnet1", "NDTNet_0"), ("ndtnet2", "NDTNet_1"),
+                ("residual", "ResidualConnection_0")], (["conv1"], ["bn1"])),
+    NDTNetPPClassification: ([("feature_extractor", "NDTNetPP_0")], _CLS_HEAD),
+    NDTNetPPSegmentation: ([("ndnet", "NDTNetPP_0"),
+                            ("residual", "ResidualConnection_0")], _SEG_HEAD),
+}
+
+
 def _pairs(model, params, stats):
     """Every (port tensor, flax leaf) pair of ``model``; the BatchNorm
     buffers only when ``stats`` is given."""
-    if isinstance(model, NDTNetSegmentation):
-        yield from _ndtnet(model.feature_extractor, params["NDTNet_0"],
-                           _sub(stats, "NDTNet_0"))
-        yield from _layers(model, params, stats,
-                           ["conv1", "conv2", "conv3", "conv4"],
-                           ["bn1", "bn2", "bn3"])
-    elif isinstance(model, NDTNet):
+    if isinstance(model, NDTNet):
         yield from _ndtnet(model, params, stats)
     elif isinstance(model, TNet):
         yield from _tnet(model, params, stats)
+    elif type(model) in _TREES:
+        children, (linears, norms) = _TREES[type(model)]
+        for attr, name in children:
+            yield from _pairs(getattr(model, attr), params[name],
+                              _sub(stats, name))
+        yield from _layers(model, params, stats, linears, norms)
     else:
         raise TypeError(f"no flax mapping for {type(model).__name__}")
 
 
 def load_jax_variables(model, variables):
-    """Fill ``model`` (TNet, NDTNet or NDTNetSegmentation) in place from
-    the flax variables of its JAX counterpart. Returns the model."""
+    """Fill ``model`` (TNet, NDTNet, NDTNetSegmentation,
+    NDTNetClassification, ResidualConnection or an NDT-Net++ model) in
+    place from the flax variables of its JAX counterpart. Returns the
+    model."""
     with torch.no_grad():
         for dst, src in _pairs(model, variables["params"],
                                variables.get("batch_stats", {})):

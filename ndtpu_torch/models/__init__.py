@@ -3,6 +3,13 @@ the reference's pointwise convolutions)."""
 from ndtpu_torch.models.ndtnet import (  # noqa: F401
     AdditionalFeatures,
     NDTNet,
+    NDTNetClassification,
     NDTNetSegmentation,
+)
+from ndtpu_torch.models.ndtnetpp import (  # noqa: F401
+    NDTNetPP,
+    NDTNetPPClassification,
+    NDTNetPPSegmentation,
+    ResidualConnection,
 )
 from ndtpu_torch.models.tnet import TNet  # noqa: F401

@@ -66,6 +66,37 @@ class NDTNet(nn.Module):
         return x, x_t2
 
 
+class NDTNetClassification(nn.Module):
+    """ndtnet.py:166-196. Output [B, num_classes]: probabilities, or
+    logits with ``return_logits=True``. The pool is the max over all M
+    rows, padded rows included, as in the JAX module. Built on ``device``
+    (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, point_dim: int = 3, num_classes: int = 512,
+                 feature_dim: int = 768, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.feature_extractor = NDTNet(point_dim, feature_dim)
+        self.conv1 = nn.Linear(feature_dim, 512)
+        self.conv2 = nn.Linear(512, 256)
+        self.conv3 = nn.Linear(256, num_classes)
+        self.to(dev)
+
+    def forward(self, points, covariances, return_logits: bool = False):
+        x, _ = self.feature_extractor(points, covariances)
+        return classification_head(self, x.amax(dim=1), return_logits)
+
+
+def classification_head(model, pooled, return_logits):
+    """ReLU(conv1), ReLU(conv2), conv3 on the pooled [B, F] features, then
+    softmax unless logits are asked for (the head of NDTNetClassification
+    and NDTNetPPClassification)."""
+    x = torch.relu(model.conv1(pooled))
+    x = torch.relu(model.conv2(x))
+    x = model.conv3(x)
+    return x if return_logits else torch.softmax(x, dim=-1)
+
+
 class NDTNetSegmentation(nn.Module):
     """ndtnet.py:198-243. Output [B, N, num_classes + 1]: log-probabilities,
     or logits with ``return_logits=True``. Built on ``device`` (the card

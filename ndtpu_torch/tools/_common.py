@@ -26,6 +26,6 @@ class IntLabels:
 def make_dataset(n_classes, n_samples, synthetic_length=32, seed=0,
                  int_labels=False):
     """The synthetic segmentation set (``SyntheticSeg``); the CARLA reader
-    of the JAX tools waits for the data slice (ROADMAP queue 0 item 6)."""
+    of the JAX tools waits for the ROADMAP item "Data"."""
     ds = SyntheticSeg(n_classes, n_samples, length=synthetic_length, seed=seed)
     return IntLabels(ds) if int_labels else ds

@@ -1,18 +1,26 @@
-"""NDT-Net segmentation trainer on the card (port of ``tools/train.py``,
-the segmentation task):
+"""NDT-Net trainer on the card (port of ``tools/train.py``), segmentation
+or classification:
 
     python -m ndtpu_torch.tools.train [--flags of TrainConfig]
     python -m ndtpu_torch.tools.train --device cpu --epochs 1 \\
         --batch_size 2 --n_samples 512 --n_desired_nds 32 --n_classes 4 \\
         --feature_dim 32 --out_path build/train
+    python -m ndtpu_torch.tools.train --task classification --device cpu \\
+        --epochs 1 --batch_size 4 --n_samples 512 --n_desired_nds 32 \\
+        --n_classes 8 --feature_dim 32 --out_path build/train_cls
 
-Each epoch trains over the synthetic set (shuffled by the epoch's seed),
+Segmentation trains on the synthetic set (``SyntheticSeg``);
+classification on a ModelNet-style tree (``--train_path`` and friends;
+``--val_path`` equal to ``--train_path`` carves a 1-in-10 holdout out of
+the train split) or, without paths, on ``SyntheticCls``, with the labels
+one-hot over ``--n_classes``. Each epoch trains over the train set
+(shuffled by the epoch's seed),
 evaluates the val split and logs one JSON line each, saves a checkpoint
 every ``save_every`` epochs (model, optimizer, step; ``--resume <dir>``
 continues from one), and a last eval runs the test split. Metrics stay
 device scalars summed over the epoch and are read once at its end.
-``--streaming`` searches each sample's voxel size once up front and trains
-with the sizes fixed.
+``--streaming`` (segmentation only) searches each sample's voxel size
+once up front and trains with the sizes fixed.
 """
 from __future__ import annotations
 
@@ -29,10 +37,17 @@ from ndtpu_torch.data.loader import (
     batch_iterator,
     prefetch_to_device,
 )
+from ndtpu_torch.data.classification import ModelNetCls
+from ndtpu_torch.data.synthetic import SyntheticCls
+from ndtpu_torch.models.ndtnet import NDTNetClassification, NDTNetSegmentation
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.tools._common import make_dataset
 from ndtpu_torch.train.config import TrainConfig
-from ndtpu_torch.train.loop import make_lr_schedule, make_ndt_seg_step
+from ndtpu_torch.train.loop import (
+    make_classification_step,
+    make_lr_schedule,
+    make_ndt_seg_step,
+)
 from ndtpu_torch.train.metrics import MetricLogger
 from ndtpu_torch.train.state import (
     create_train_state,
@@ -97,33 +112,89 @@ def precompute_voxel_sizes(ds, cfg):
     return WithVoxelSizes(ds, sizes)
 
 
+class _OneHotCls:
+    """Adapter: (points, label) -> (points, one-hot [num_classes] f32)."""
+
+    def __init__(self, ds, num_classes):
+        self.ds, self.num_classes = ds, num_classes
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        pts, label = self.ds[i]
+        oh = np.zeros((self.num_classes,), np.float32)
+        oh[label] = 1.0
+        return pts, oh
+
+
+def make_cls_dataset(cfg, split, seed):
+    """The classification set of ``split`` (train, val or test):
+    ModelNetCls at the split's path, else SyntheticCls. When the val path
+    is the train path, val is the carved holdout and train the rest, so
+    model selection never reads the test split."""
+    path = {"train": cfg.train_path, "val": cfg.val_path,
+            "test": cfg.test_path}[split]
+    if not path:
+        return _OneHotCls(SyntheticCls(n_points=cfg.n_samples,
+                                      length=cfg.synthetic_length, seed=seed),
+                         cfg.n_classes)
+    carve = bool(cfg.val_path) and cfg.val_path == cfg.train_path
+    ds_split = {"train": "train+holdout" if carve else "train",
+                "val": "val", "test": "test"}[split]
+    ds = ModelNetCls(path, split=ds_split, n_points=cfg.n_samples, seed=seed)
+    if ds.n_classes > cfg.n_classes:
+        # the head has cfg.n_classes outputs: a label past them would
+        # corrupt the loss
+        raise ValueError(
+            f"dataset at {path} has {ds.n_classes} classes but --n_classes "
+            f"is {cfg.n_classes}; pass --n_classes >= {ds.n_classes}")
+    return _OneHotCls(ds, cfg.n_classes)
+
+
 def main(argv=None):
     """Train as the flags say; returns the final TrainState."""
     cfg = TrainConfig.from_args(argv)
-    out_dir = os.path.join(
-        cfg.out_path, datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
-
+    classify = "classification" in cfg.task
+    if classify and cfg.streaming:
+        raise SystemExit("--streaming supports the segmentation task only")
     sets = []
-    for seed in (0, 1, 2):  # train, val, test
-        ds = make_dataset(cfg.n_classes, cfg.n_samples,
-                          synthetic_length=cfg.synthetic_length, seed=seed,
-                          int_labels=cfg.int_labels)
+    for seed, split in enumerate(("train", "val", "test")):
+        if classify:
+            ds = make_cls_dataset(cfg, split, seed)
+        else:
+            ds = make_dataset(cfg.n_classes, cfg.n_samples,
+                              synthetic_length=cfg.synthetic_length, seed=seed,
+                              int_labels=cfg.int_labels)
         if cfg.streaming:
             ds = precompute_voxel_sizes(ds, cfg)
         sets.append(CachedDataset(ds) if cfg.cache_dataset else ds)
     train_set, val_set, test_set = sets
 
-    steps_per_epoch = max(1, len(train_set) // cfg.batch_size)
-    schedule = make_lr_schedule(cfg.learning_rate, steps_per_epoch,
+    schedule = make_lr_schedule(cfg.learning_rate,
+                                max(1, len(train_set) // cfg.batch_size),
                                 cfg.lr_decay_epochs, cfg.lr_decay_rate)
+    model, make_step = ((NDTNetClassification, make_classification_step)
+                        if classify else
+                        (NDTNetSegmentation, make_ndt_seg_step))
     state = create_train_state(cfg.n_classes, cfg.feature_dim, schedule,
-                               seed=cfg.seed, device=cfg.device)
-    step_fn, eval_fn = make_ndt_seg_step(cfg.n_desired_nds, cfg.n_classes,
-                                         cfg.search)
+                               seed=cfg.seed, device=cfg.device, model=model)
+    step_fn, eval_fn = make_step(cfg.n_desired_nds, cfg.n_classes, cfg.search)
+    return fit(cfg, state, step_fn, eval_fn, train_set, val_set, test_set,
+               "ndtnet")
+
+
+def fit(cfg, state, step_fn, eval_fn, train_set, val_set, test_set, prefix):
+    """The epochs of a trainer: resume from ``cfg.resume`` if given; each
+    epoch train, log, evaluate val, log, and every ``save_every`` epochs
+    save ``<out_path>/<time>/<prefix>_<task>_<epoch>``; then evaluate the
+    test split unless it is None. Returns the final state."""
     if cfg.resume:
         state = restore_checkpoint(state, cfg.resume)
         print(f"resumed from {cfg.resume} at step {state.step}")
-
+    out_dir = os.path.join(
+        cfg.out_path, datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
+    steps_per_epoch = max(1, len(train_set) // cfg.batch_size)
     logger = MetricLogger(
         use_wandb=cfg.wandb, project=cfg.wandb_project,
         run_name=f"{cfg.task}_{datetime.datetime.now():%Y%m%d_%H%M%S}",
@@ -151,11 +222,12 @@ def main(argv=None):
         logger.log({f"val_{k}": v for k, v in eval_epoch(val_set).items()},
                    step=epoch + 1)
         if (epoch + 1) % cfg.save_every == 0:
-            path = save_checkpoint(
-                state, os.path.join(out_dir, f"ndtnet_{cfg.task}_{epoch + 1}"))
+            path = save_checkpoint(state, os.path.join(
+                out_dir, f"{prefix}_{cfg.task}_{epoch + 1}"))
             print(f"saved checkpoint to {path}")
 
-    logger.log({f"test_{k}": v for k, v in eval_epoch(test_set).items()})
+    if test_set is not None:
+        logger.log({f"test_{k}": v for k, v in eval_epoch(test_set).items()})
     logger.finish()
     print("Done.")
     return state

@@ -1,12 +1,12 @@
-"""The trainer's config (port of ``ndtpu/train/config.py``): the same flag
+"""The trainers' config (port of ``ndtpu/train/config.py``): the same flag
 names and defaults, the same ``from_args`` (``--flag/--no-flag`` for
-bools), plus ``--device`` (default ``cuda``; the tests ask for ``cpu``).
+bools, default overrides for another trainer's defaults), plus
+``--device`` (default ``cuda``; the tests ask for ``cpu``).
 
 A flag the port cannot honour yet makes ``validate()`` raise with the
-ROADMAP item that will port it; none is ignored quietly. Two fields are
-read by no segmentation trainer, here or in the JAX package:
-``n_desired_nds1`` (the multiscale trainer's) and ``steps_per_epoch``
-(the trainer derives it from the dataset).
+title of the ROADMAP item that will port it; none is ignored quietly.
+``steps_per_epoch`` is read by no trainer, here or in the JAX package
+(the trainers derive it from the dataset).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ class TrainConfig:
     n_classes: int = 28
     feature_dim: int = 768
 
+    # the multiscale trainer's coarse ND count (n_desired_nds is its fine)
     n_desired_nds1: int = 4080
 
     # halve the rate every lr_decay_epochs epochs
@@ -72,26 +73,27 @@ class TrainConfig:
                 f"--search must be fast|probe|reference|grid, got {self.search!r}"
             )
         waits = [
-            ("classification" in self.task,
-             "--task classification waits for ROADMAP queue 0 item 3"),
-            (any((self.train_path, self.val_path, self.test_path)),
-             "--train_path/--val_path/--test_path (CarlaSeg) wait for ROADMAP "
-             "queue 0 item 6 (data); leave them unset for the synthetic set"),
+            ("classification" not in self.task
+             and any((self.train_path, self.val_path, self.test_path)),
+             "--train_path/--val_path/--test_path of the segmentation task "
+             "(CarlaSeg) wait for the ROADMAP item \"Data\"; leave them "
+             "unset for the synthetic set"),
             (self.search == "grid",
-             "--search grid waits for ROADMAP queue 0 item 4"),
+             "--search grid waits for the ROADMAP item \"The rest of "
+             "core/ndt.py\""),
             (self.use_pallas != "auto",
              "--use_pallas: the tensors' device picks the route (the CUDA "
              "kernel on the card); only 'auto' is accepted"),
             ((self.compute_dtype, self.param_dtype) != ("float32", "float32"),
-             "--compute_dtype/--param_dtype other than float32 wait for "
-             "ROADMAP queue 1 item 8 (open: non-float32 dtypes)"),
+             "--compute_dtype/--param_dtype other than float32 wait for the "
+             "ROADMAP item \"Trainer extras\""),
             (self.device_cache,
-             "--device_cache (with --epoch_scan) waits for ROADMAP queue 1 "
-             "item 8 (open: DeviceCachedDataset, make_epoch_scan)"),
+             "--device_cache (with --epoch_scan) waits for the ROADMAP item "
+             "\"Trainer extras\" (DeviceCachedDataset, make_epoch_scan)"),
             (self.num_processes > 1 or self.coordinator is not None
              or self.data_axis != "data",
-             "multi-process / mesh flags wait for ROADMAP queue 1 item 15 "
-             "(data parallelism with SyncBatchNorm)"),
+             "multi-process / mesh flags wait for the ROADMAP item "
+             "\"Multi-process data parallelism\""),
         ]
         for bad, why in waits:
             if bad:
@@ -100,8 +102,11 @@ class TrainConfig:
         return self
 
     @classmethod
-    def from_args(cls, argv=None):
-        """argparse overlay with the reference's flag names and defaults."""
+    def from_args(cls, argv=None, **default_overrides):
+        """argparse overlay with the reference's flag names and defaults;
+        ``default_overrides`` replace dataclass defaults (the multiscale
+        trainer's n_desired_nds, batch_size, feature_dim) and stay
+        overridable on the command line."""
         import argparse
         import typing
 
@@ -113,15 +118,16 @@ class TrainConfig:
 
         parser = argparse.ArgumentParser()
         for f in dataclasses.fields(cls):
+            default = default_overrides.get(f.name, f.default)
             t = base_type(hints[f.name])
             if t is bool:
                 parser.add_argument(
                     f"--{f.name}", action=argparse.BooleanOptionalAction,
-                    default=f.default,
+                    default=default,
                 )
             elif t in (int, float, str):
-                parser.add_argument(f"--{f.name}", type=t, default=f.default)
+                parser.add_argument(f"--{f.name}", type=t, default=default)
             else:
-                parser.add_argument(f"--{f.name}", type=str, default=f.default)
+                parser.add_argument(f"--{f.name}", type=str, default=default)
         ns = parser.parse_args(argv)
         return cls(**vars(ns)).validate()

@@ -43,12 +43,17 @@ class TrainState:
 
 
 def create_train_state(num_classes: int, feature_dim: int, schedule,
-                       seed: int = 0, device="cuda") -> TrainState:
-    """A fresh NDTNetSegmentation on ``device`` (the card unless the caller
-    asks for the CPU) with random weights from ``seed`` (drawn on the CPU,
-    so every device gets the same model), and its optimizer."""
-    model = init_random_(NDTNetSegmentation(
-        num_classes=num_classes, feature_dim=feature_dim, device=device), seed)
+                       seed: int = 0, device="cuda",
+                       model=NDTNetSegmentation, **model_kw) -> TrainState:
+    """A fresh ``model`` (a model class: NDTNetSegmentation,
+    NDTNetClassification, NDTNetPPSegmentation, ...; ``model_kw`` go to its
+    constructor, e.g. fine_res and coarse_res) on ``device`` (the card
+    unless the caller asks for the CPU), with random weights from ``seed``
+    (drawn on the CPU, so every device gets the same model), and its
+    optimizer."""
+    model = init_random_(model(num_classes=num_classes,
+                               feature_dim=feature_dim, device=device,
+                               **model_kw), seed)
     optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
                                  betas=(0.9, 0.999), eps=1e-8)
     return TrainState(model, optimizer, schedule)

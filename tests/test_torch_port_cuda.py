@@ -343,3 +343,19 @@ def test_train_step_on_card_matches_cpu(cuda):
     clouds without a 2- or 3-point voxel, one K1 launch on the card,
     metrics as scalars on the step's device."""
     chip_smoke.small_step_check()
+
+
+@pytest.mark.cuda
+def test_classification_step_on_card_matches_cpu(cuda):
+    """One classification step of the same TrainState on the card and on
+    the CPU (chip_smoke.small_cls_step_check, compare_step's tolerances):
+    eight clouds, one K1 launch on the card, the accuracy to one cloud."""
+    chip_smoke.small_cls_step_check()
+
+
+@pytest.mark.cuda
+def test_multiscale_step_on_card_matches_cpu(cuda):
+    """One NDT-Net++ segmentation step of the same TrainState on the card
+    and on the CPU (chip_smoke.small_multiscale_step_check): eight clouds
+    at fine 16 and coarse 8 NDs, two K1 launches on the card."""
+    chip_smoke.small_multiscale_step_check()

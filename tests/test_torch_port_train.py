@@ -396,6 +396,59 @@ def test_whole_step_matches_make_ndt_seg_step_over_3_steps():
     assert state.step == int(js.step) == 3
 
 
+def test_eval_losses_after_two_steps_at_lr_0034_match_jax_in_magnitude():
+    """The trainer's full-width eval losses (~1e8-1e10 after 2 steps at lr
+    0.034) are the model's behaviour: at feature_dim 768 and lr 0.034, on
+    B = 4 uniform clouds of N = 2048 points (random_cloud, no 2- or
+    3-point voxel at M = 64) with 28 classes, JAX's make_ndt_seg_step and
+    the port each take 2 steps from the same weights, then evaluate 4 other
+    clouds. The train losses agree within rtol 5e-2; both eval losses are
+    huge and within a factor of 10 of each other (Adam's first updates are
+    +-lr on f32-noise gradients, and in eval mode the biases in front of
+    each BatchNorm shift the activations, so the values themselves differ);
+    and the port's eval step on JAX's state, carried over, gives JAX's
+    eval loss within rtol 1e-5."""
+    from ndtpu_torch.data.synthetic import random_cloud
+
+    b, n, m, c, f, lr = 4, 2048, 64, 28, 768, 0.034
+
+    def batch(seeds):
+        pts = np.stack([random_cloud(n, 10.0, seed=s) for s in seeds])
+        labels = (1 + (pts[..., 0] > 5) + 2 * (pts[..., 1] > 5)).astype(np.int32)
+        return pts, labels
+
+    train, val = batch((0, 1, 2, 3)), batch((4, 5, 6, 7))
+    for pts in (train[0], val[0]):
+        counts = np.asarray(jax_prep(m, jnp.asarray(pts), None, c, False,
+                                     "reference")[4].counts)
+        assert not ((counts == 2) | (counts == 3)).any()
+    js = jax_create_train_state(
+        JaxSegmentation(num_classes=c, feature_dim=f),
+        optax.adam(jloop.make_lr_schedule(lr, 2)), jax.random.PRNGKey(0),
+        jnp.zeros((b, m, 3)), jnp.zeros((b, m, 9)), init_kwargs={"train": False})
+
+    def carried(js):
+        state = create_train_state(c, f, loop.make_lr_schedule(lr, 2), device="cpu")
+        return load_jax_train_state(state, jax.tree_util.tree_map(np.asarray, js))
+
+    state = carried(js)
+    step_j, eval_j = jloop.make_ndt_seg_step(m, c, False, "reference")
+    step, eval_step = loop.make_ndt_seg_step(m, c, "reference")
+    for _ in range(2):
+        js, m_ref = step_j(js, *map(jnp.asarray, train))
+        state, got = step(state, *map(torch.from_numpy, train))
+        np.testing.assert_allclose(float(got["loss"]), float(m_ref["loss"]),
+                                   rtol=5e-2)
+    ref = float(eval_j(js, *map(jnp.asarray, val))["loss"])
+    ours = float(eval_step(state, *map(torch.from_numpy, val))["loss"])
+    print(f"eval loss after 2 steps at lr {lr}: JAX {ref:.6g}, port {ours:.6g}")
+    assert ref > 1e6 and ours > 1e6
+    assert abs(np.log10(ours / ref)) < 1
+    np.testing.assert_allclose(
+        float(eval_step(carried(js), *map(torch.from_numpy, val))["loss"]),
+        ref, rtol=1e-5)
+
+
 def test_streaming_step_equals_search_step():
     """Fixed voxel sizes taken from the search give the searching step's
     results bit for bit (train and eval), as tests/test_train.py holds
@@ -472,7 +525,7 @@ def test_synthetic_seg_and_batches_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--task", "classification"], ["--train_path", "x"], ["--search", "grid"],
+    ["--data_axis", "model"], ["--train_path", "x"], ["--search", "grid"],
     ["--use_pallas", "on"], ["--compute_dtype", "bfloat16"],
     ["--param_dtype", "bfloat16"], ["--device_cache"],
     ["--num_processes", "2"], ["--coordinator", "h:1"],
@@ -483,12 +536,23 @@ def test_config_raises_on_flags_not_ported(flag):
 
 
 def test_config_defaults_match_the_jax_trainer():
+    """The segmentation and classification trainers' configs, and the
+    multiscale trainer's (its default overrides, still overridable on the
+    command line), against the JAX package's."""
     from ndtpu.train.config import TrainConfig as JaxTrainConfig
 
-    ours = TrainConfig.from_args(["--device", "cpu", "--no-int_labels"])
-    ref = JaxTrainConfig.from_args(["--no-int_labels"])
-    assert {k: v for k, v in vars(ours).items() if k != "device"} == vars(ref)
-    assert ours.device == "cpu"
+    multiscale = dict(n_desired_nds=8160, batch_size=4, feature_dim=1024)
+    for argv, overrides in ((["--no-int_labels"], {}),
+                            (["--task", "classification", "--train_path", "m",
+                              "--val_path", "m"], {}),
+                            ([], multiscale)):
+        ours = TrainConfig.from_args(["--device", "cpu"] + argv, **overrides)
+        ref = JaxTrainConfig.from_args(argv, **overrides)
+        assert {k: v for k, v in vars(ours).items() if k != "device"} == vars(ref)
+        assert ours.device == "cpu"
+    assert (ours.n_desired_nds, ours.n_desired_nds1, ours.batch_size) == (8160, 4080, 4)
+    assert TrainConfig.from_args(["--device", "cpu", "--batch_size", "2"],
+                                 **multiscale).batch_size == 2
 
 
 def run_trainer(args, tmp_path):
