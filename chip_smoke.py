@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ndtpu_torch serving, giant-cloud and training paths on one
-NVIDIA card and check them.
+"""Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet
+and CARLA data paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -67,6 +67,31 @@ Phases, each of which ends the script with a non-zero exit on failure:
    host syncs, a stage split (fine prep, coarse prep, forward, loss +
    backward, optimizer) and peak memory; the multiscale trainer CLI at
    its full width for an epoch of 8 steps and 8 val evals.
+8. The sampler's variants on the serving batch (seed 1) with its last
+   cloud replaced by an outlier cloud (a 1 m cube of points and one point
+   4 km away): K1 held against its plain version on the pair-key build;
+   probe/packed (the serving path), grid/packed, grid/pair, probe/pair
+   and probe/packed with the legacy_c prune, each a warm-up and 3 timed
+   downsamples with one K1 launch each, every ordinary cloud converged
+   with 1000 NDs, the outlier cloud converged under pair keys and
+   reported unconverged under packed ones, the host syncs of one, and two
+   clouds against the CPU at the card's accepted sizes; ndt_prune to 500
+   in the legacy_c order, checked against the CPU and timed.
+9. PointNet (tools/train_pointnet.py): one step card vs CPU (no K1
+   launch); 5 timed steps at full width (B 16, N 4160, 28 classes,
+   feature_dim 768) with the split forward / loss + backward / optimizer,
+   the host syncs (none) and peak memory; the PointNet trainer CLI for an
+   epoch and a resumed one on a CarlaSeg tree of 16 PLY clouds it writes
+   under build/.
+10. CARLA data: 8 PLY clouds of 70000 points and 29 class tags written
+   under build/; read_ply native and numpy, timed and bitwise equal; FPS
+   on the card equal to the CPU on an exact-arithmetic cloud (20000 ->
+   4160 points); CarlaNDTSeg
+   (FPS 70000 -> 4160 points on the card, a tagged reference downsample
+   to 2080 NDs) on 3 items, one K1 launch each, FPS ms a cloud, its
+   device share and the host syncs an item; the segmentation trainer CLI for an epoch with
+   --train_path/--val_path/--test_path on the tree (batch 8, three K1
+   launches).
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -76,9 +101,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -90,9 +117,12 @@ import torch
 import torch.distributed as dist
 
 from ndtpu_torch.core import moments, ndt, voxel
-from ndtpu_torch.core.kl import INT32_MAX
+from ndtpu_torch.core.kl import INT32_MAX, neighbor_min_kl
+from ndtpu_torch.data.carla import CarlaNDTSeg
+from ndtpu_torch.data.ply import read_ply, write_ply
 from ndtpu_torch.data.synthetic import (
     SyntheticCls,
+    SyntheticSeg,
     example_cloud,
     giant_cloud,
     make_batch,
@@ -101,20 +131,24 @@ from ndtpu_torch.models import (
     NDTNetClassification,
     NDTNetPPSegmentation,
     NDTNetSegmentation,
+    PointNetSegmentation,
 )
 from ndtpu_torch.ops import _build
 from ndtpu_torch.ops import segment_moments as sm
+from ndtpu_torch.ops.fps import farthest_point_sampling
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.serve import SegmentationPipeline, init_random_
 from ndtpu_torch.tools import train as train_cli
 from ndtpu_torch.tools import train_multiscale as train_multiscale_cli
+from ndtpu_torch.tools import train_pointnet as train_pointnet_cli
 from ndtpu_torch.train import loop as train_loop
 from ndtpu_torch.train.loop import (
     make_classification_step,
     make_multiscale_seg_step,
     make_ndt_seg_step,
+    make_pointnet_seg_step,
 )
 from ndtpu_torch.train.state import create_train_state
 
@@ -167,11 +201,11 @@ def dense_rank_inputs(slots, seed):
                 slots=slots, k=K)
 
 
-def canonical_inputs(points, m=M, labels=None):
+def canonical_inputs(points, m=M, labels=None, key_mode="packed"):
     """The kernel's inputs for a batch reduced to m NDs, from the port's
-    own limits, probe, search-and-sort and moment-input stages: untagged,
-    or tagged with int labels [B, N] in C + 1 class slots (the training
-    path)."""
+    own limits, probe, search-and-sort and moment-input stages at the
+    envelope of ``key_mode``: untagged, or tagged with int labels [B, N]
+    in C + 1 class slots (the training path)."""
     px, py, pz = (points[..., a].contiguous() for a in range(3))
     mask = torch.ones(px.shape, dtype=torch.bool, device=points.device)
     tagged = labels is not None
@@ -179,7 +213,7 @@ def canonical_inputs(points, m=M, labels=None):
                torch.zeros(px.shape, dtype=torch.int32, device=points.device))
     k = ndt.max_segments(m)
     mins, maxs = ndt._limits(px, py, pz, mask)
-    env = ndt._min_packable_voxel_size(mins, maxs)
+    env = ndt._envelope(mins, maxs, key_mode)
     seed = ndt._probe_seed_size(px, py, pz, mask, m, mins, maxs, env)
     size, _, cols = ndt._search_and_sort_fast(
         px, py, pz, mask, classes, m, mins, maxs, env, tagged=tagged,
@@ -893,6 +927,12 @@ SMALL_SEEDS = (1, 5, 6, 7, 8, 9, 10, 21)
 SMALL_N, SMALL_M, SMALL_C, SMALL_F = 1024, 16, 4, 32
 STEP_RTOL = 1e-4                     # loss, running statistics (atol 1e-5)
 GRAD_TOL = 1e-3                      # of a leaf's largest |grad|
+# PointNet on raw coordinates is worse conditioned: on the small batch the
+# CPU's own f32 gradients lie up to 5.6e-3 of a leaf's largest from a
+# float64 evaluation (1.5e-3 to 1.6e-2 on other batches tried), so each
+# device's gradients are held to the float64 step's, not to each other
+PN_GRAD_TOL = 2e-2
+ADAM_EPS = 1e-8                      # train/state.py's Adam
 
 
 def train_batch():
@@ -918,25 +958,41 @@ def small_batch(fine=SMALL_M, coarse=None):
     return pts, labels
 
 
-def compare_step(label, step, make_state, batch, k1_per_step, rows):
+def compare_step(label, step, make_state, batch, k1_per_step, rows,
+                 grad_tol=GRAD_TOL, ref64=False):
     """One train step of the same TrainState (``make_state(device)``,
     weights from seed 0) on the card and on the CPU: ``k1_per_step`` K1
     launches on the card and none on the CPU, metrics on the step's
     device. The loss and the BN running statistics agree to STEP_RTOL,
-    the accuracy to one of its ``rows``, every gradient leaf to GRAD_TOL
-    of its largest |grad| (leaves whose largest is below 1e-6 of the
-    model's are f32 noise: the biases in front of a BatchNorm), and the
-    parameters to 1e-6 where |grad| >= GRAD_TOL of the leaf's largest:
-    Adam's first update is lr * sign(grad), and a sign inside the rounding
-    error of the two devices' sums is noise."""
+    the accuracy to one of its ``rows``, every gradient leaf to
+    ``grad_tol`` of its largest |grad| (leaves whose largest is below 1e-6
+    of the model's are f32 noise: the biases in front of a BatchNorm), and
+    the parameters to 1e-6 where |grad| >= ``grad_tol`` of the leaf's
+    largest: Adam's first update is lr * sign(grad), and a sign inside the
+    rounding error of the two devices' sums is noise.
+
+    With ``ref64`` the gradients are held instead to those of the same
+    step run in float64 on the CPU: each device's, leaf by leaf, within
+    ``grad_tol`` of the float64 leaf's largest |grad|, both largest gaps
+    printed; the parameters are compared where the float64 |grad| exceeds
+    twice the larger gap of the two devices on its leaf (so both signs
+    are right) and 4 lr eps / 1e-6 (so Adam's lr g / (|g| + eps) lies
+    within 1e-6 of lr sign(g))."""
     out = {}
-    for dev in ("cuda", "cpu"):
-        state = make_state(dev)
+    runs = (("cuda", "cuda"), ("cpu", "cpu")) + ((("cpu64", "cpu"),)
+                                                  if ref64 else ())
+    for dev, where in runs:
+        state = make_state(where)
+        inputs = [torch.from_numpy(a).to(where) for a in batch]
+        if dev == "cpu64":
+            state.model.double()
+            inputs = [a.double() if a.is_floating_point() else a
+                      for a in inputs]
         before = sm.fused_moments_sorted.launches
-        state, m = step(state, *(torch.from_numpy(a).to(dev) for a in batch))
+        state, m = step(state, *inputs)
         launched = sm.fused_moments_sorted.launches - before
         want = k1_per_step if dev == "cuda" else 0
-        if launched != want or m["loss"].device.type != dev:
+        if launched != want or m["loss"].device.type != where:
             raise AssertionError(f"{label} on {dev}: {launched} K1 launches, "
                                  f"loss on {m['loss'].device}")
         out[dev] = ({k: float(v) for k, v in m.items()},
@@ -950,20 +1006,40 @@ def compare_step(label, step, make_state, batch, k1_per_step, rows):
         raise AssertionError(f"{label}: accuracy differs card vs CPU")
     for name, ref in bc.items():
         torch.testing.assert_close(bg[name], ref, rtol=STEP_RTOL, atol=1e-5)
-    gmax = max(float(g.abs().max()) for _, g in pc.values())
-    compared = 0
+    ref = out["cpu64"][1] if ref64 else pc
+    gmax = max(float(g.abs().max()) for _, g in ref.values())
+    compared, gaps = 0, {"card": 0.0, "CPU": 0.0}
     for name, (p_cpu, g_cpu) in pc.items():
         p_gpu, g_gpu = pg[name]
-        leaf = float(g_cpu.abs().max())
+        g_ref = ref[name][1]
+        leaf = float(g_ref.abs().max())
         if leaf < 1e-6 * gmax:
             continue
-        if float((g_gpu - g_cpu).abs().max()) > GRAD_TOL * leaf:
-            raise AssertionError(f"{label}: grad of {name} differs card vs CPU")
-        keep = g_cpu.abs() >= GRAD_TOL * leaf
+        if ref64:
+            gap = max(float((g - g_ref).abs().max())
+                      for g in (g_gpu, g_cpu.double()))
+            for dev, g in (("card", g_gpu), ("CPU", g_cpu)):
+                rel = float((g.double() - g_ref).abs().max()) / leaf
+                gaps[dev] = max(gaps[dev], rel)
+                if rel > grad_tol:
+                    raise AssertionError(f"{label}: grad of {name} on the "
+                                         f"{dev} {rel:.3e} of its largest "
+                                         "from float64")
+            keep = ((g_ref.abs() > 2 * gap)
+                    & (g_ref.abs() >= 4 * TRAIN_LR * ADAM_EPS / 1e-6))
+        else:
+            if float((g_gpu - g_cpu).abs().max()) > grad_tol * leaf:
+                raise AssertionError(f"{label}: grad of {name} differs card "
+                                     "vs CPU")
+            keep = g_cpu.abs() >= grad_tol * leaf
         torch.testing.assert_close(p_gpu[keep], p_cpu[keep], rtol=0, atol=1e-6)
         compared += int(keep.sum())
+    total = sum(p.numel() for p, _ in pc.values())
     print(f"{label}: card == CPU (loss {mg['loss']:.6f} / {mc['loss']:.6f}; "
-          f"{compared} parameters compared)")
+          f"{compared} of {total} parameters compared"
+          + ("; largest gradient gap from float64, of a leaf's largest: "
+             f"card {gaps['card']:.3e}, CPU {gaps['CPU']:.3e}" if ref64 else "")
+          + ")")
 
 
 def small_state(model=NDTNetSegmentation, **model_kw):
@@ -1022,6 +1098,40 @@ class PrepRecorder:
 
     def __exit__(self, *exc):
         train_loop.ndt_preprocessing_with_state = self.saved
+
+
+class K1Recorder:
+    """Keeps, while active, the inputs of the first K1 launch of each
+    shape (batch, points, rows, slots, tag columns) that the port's moment
+    stage makes, as canonical_inputs gives them, so that check_kernel can
+    hold K1 at the shapes and on the data a path really gave it."""
+
+    def __enter__(self):
+        self.inputs = {}
+        self.saved = moments.fused_moments_sorted
+
+        def k1(xt, yt, zt, v, cls, seg, k, slots, tags=None):
+            tags = list(tags or ())
+            key = (tuple(xt.shape), k, slots, len(tags))
+            self.inputs.setdefault(key, dict(xt=xt, yt=yt, zt=zt, v=v,
+                                             cls=cls, seg=seg, tags=tags,
+                                             slots=slots, k=k))
+            return self.saved(xt, yt, zt, v, cls, seg, k, slots, tags=tags)
+
+        moments.fused_moments_sorted = k1
+        return self
+
+    def __exit__(self, *exc):
+        moments.fused_moments_sorted = self.saved
+
+    def check(self, label):
+        """check_kernel on every recorded shape. Returns the largest
+        max_abs_err."""
+        if not self.inputs:
+            raise AssertionError(f"{label}: no K1 launch recorded")
+        return max(check_kernel(x, f"{label} ([{', '.join(map(str, shape))}]"
+                                f" -> {k} rows, {slots} slots, {t} tags)")
+                   for (shape, k, slots, t), x in self.inputs.items())
 
 
 def run_trainer(args, main):
@@ -1104,10 +1214,11 @@ def trainer_runs(label, main, args, resume):
               if "loss" in k]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: logged losses {losses}")
-    converged = torch.stack([c for c, _, _ in rec.calls])
-    short = torch.stack([kept - asked for _, kept, asked in rec.calls])
-    if not bool(converged.all()) or bool(short.any()):
-        raise AssertionError(f"{label}: a cloud did not converge to its NDs")
+    if rec.calls:  # the PointNet trainer preprocesses nothing
+        converged = torch.stack([c for c, _, _ in rec.calls])
+        short = torch.stack([kept - asked for _, kept, asked in rec.calls])
+        if not bool(converged.all()) or bool(short.any()):
+            raise AssertionError(f"{label}: a cloud did not converge to its NDs")
     mean = {split: [log[f"{split}_mean_loss"] for logs in runs for log in logs
                     if f"{split}_mean_loss" in log]
             for split in ("train", "val", "test")}
@@ -1374,6 +1485,421 @@ def multiscale_phase():
     return launches, err, times
 
 
+# ---- the sampler's variants, PointNet and the CARLA data path ----
+
+# (search, key_mode, prune_order); the first is the serving path's, timed
+# beside the others in the same call
+VARIANTS = (("probe", "packed", "ascending"), ("grid", "packed", "ascending"),
+            ("grid", "pair", "ascending"), ("probe", "pair", "ascending"),
+            ("probe", "packed", "legacy_c"))
+VARIANT_REQUESTS = 3
+PRUNE_M = 500                         # ndt_prune's coarse count (legacy_c)
+CPU_CLOUDS = (0, B - 1)               # clouds held against the CPU (B - 1: the outlier)
+# of the card's kept NDs on CPU_CLOUDS, the share that the full CPU run
+# may miss: KLs that rounding moves across the prune's cut (1 to 5 of 1065
+# or 2000 on the H100, PERF.md)
+KEPT_DIFF_FRAC = 0.01
+PN_N = 4160                           # tools/train_pointnet.py's n_samples
+PN_OUT = "build/chip_smoke_pointnet"
+CARLA_DIR = "build/chip_smoke_carla"
+CARLA_CLOUDS = 8                      # PLY files of N points, 29 class tags
+CARLA_NDS = 2080                      # CarlaNDTSeg's num_desired_nds
+CARLA_ITEMS = 3
+# FPS card == CPU: all of PN_N's steps over a smaller exact cloud (the
+# CPU's 4159 steps over 70000 points take tens of seconds)
+FPS_CHECK_N = 20000
+PN_TREE = "build/chip_smoke_pointnet_tree"
+PN_TREE_CLOUDS, PN_TREE_N = 16, 8192  # the PointNet trainer's CarlaSeg tree
+
+
+def outlier_cloud(n, seed):
+    """[n, 3] f32: n - 1 points uniform in a 1 m cube plus one point 4 km
+    away in x and y. The grid that resolves the cube to 1000 NDs has far
+    more than 2**31 cells, while len_z * len_y stays small: packed keys
+    cannot reach the band, pair keys can."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0.0, 1.0, size=(n - 1, 3))
+    return np.concatenate([pts, [[4000.0, 4000.0, 0.5]]]).astype(np.float32)
+
+
+def variant_batch():
+    """The serving batch (make_batch(16, 70000, seed 1)) with its last
+    cloud replaced by the outlier cloud, on the card."""
+    pts = make_batch(B, N, seed=1)
+    pts[-1] = outlier_cloud(N, seed=7)
+    return torch.from_numpy(pts).cuda()
+
+
+def well_posed(counts, zyx, covs):
+    """[K] bool: occupied voxels whose own and every occupied neighbour's
+    covariance rest on >= 4 points and has |det| > 1e-3 (tr/3)**3, a
+    thousand times the KL's singularity threshold. Elsewhere a KL is
+    decided, or scaled up to ~6e-8 x the condition number, by f32
+    rounding (ROADMAP.md, faults). One cloud's state on the host, as
+    tensors or numpy arrays; the rule by which the card check and the
+    CPU tests pick the KLs they compare."""
+    counts, zyx, covs = (a if torch.is_tensor(a) else torch.from_numpy(
+        np.array(a)) for a in (counts, zyx, covs))
+    det = torch.linalg.det(covs.double())
+    tr = covs.diagonal(dim1=-2, dim2=-1).sum(-1).double() / 3.0
+    good = (counts >= 4) & (det.abs() > 1e-3 * tr**3)
+    counts, zyx, good = counts.numpy(), zyx.numpy(), good.numpy()
+    bad = {tuple(c) for c in zyx[(counts > 0) & ~good]}
+    steps = np.vstack([np.eye(3, dtype=np.int64), -np.eye(3, dtype=np.int64)])
+    ok = good.copy()
+    for i in np.nonzero(ok)[0]:
+        ok[i] = not any(tuple(zyx[i] + d) in bad for d in steps)
+    return torch.from_numpy(ok)
+
+
+def check_variant_vs_cpu(points, out, label, key_mode, prune_order, m=None,
+                         clouds=None):
+    """The card's downsample of ``clouds`` (CPU_CLOUDS by default) to m
+    (M) NDs against the port's CPU path, stage by stage. At the card's
+    accepted sizes the CPU's state has the card's integers exactly and
+    its means and covariances within f32 rounding. The CPU's KL stage on
+    the card's moments gives the card's KLs: finiteness exactly and
+    values to 1e-3 where well posed (``well_posed``; elsewhere the
+    covariance's condition number scales up their ulp differences, and
+    the two devices round a log and a division differently). The CPU's
+    emit of the card's state equals the card's emit bit for bit. The kept
+    NDs of the two full runs may still differ where rounding moves a KL
+    across the prune's cut, in at most KEPT_DIFF_FRAC of the card's kept
+    NDs. Returns (the card's kept NDs the CPU run did not keep, the card's
+    kept NDs)."""
+    m = M if m is None else m
+    clouds = CPU_CLOUDS if clouds is None else clouds
+    idx = torch.tensor(clouds)
+    st = out[4]
+    host = ndt.NDTResult(**{f.name: getattr(st, f.name)[idx.cuda()].cpu()
+                            for f in dataclasses.fields(ndt.NDTResult)})
+    cpu = ndt.ndt_downsample(points[idx.cuda()].cpu(), m,
+                             fixed_voxel_size=host.voxel_size,
+                             key_mode=key_mode, prune_order=prune_order)
+    cs = cpu[4]
+    for name in ("voxel_size", "num_valid", "counts", "zyx", "lens",
+                 "class_hist"):
+        if not torch.equal(getattr(host, name), getattr(cs, name)):
+            raise AssertionError(f"{label}: {name} differs card vs CPU")
+    vs2 = float(host.voxel_size.max()) ** 2
+    torch.testing.assert_close(host.means, cs.means, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(host.covs, cs.covs, rtol=1e-4,
+                               atol=1e-5 * max(1.0, vs2))
+    kls = neighbor_min_kl(host.means, host.covs, host.counts, host.zyx,
+                          host.lens)
+    for i in range(len(clouds)):
+        ok = well_posed(host.counts[i], host.zyx[i], host.covs[i])
+        for name, ref in zip(("min_kl", "max_kl"), kls):
+            a, r = getattr(host, name)[i][ok], ref[i][ok]
+            if not torch.equal(torch.isinf(a), torch.isinf(r)):
+                raise AssertionError(f"{label}: {name} finiteness differs")
+            fin = torch.isfinite(r)
+            torch.testing.assert_close(a[fin], r[fin], rtol=1e-3, atol=1e-3)
+    emitted = ndt._emit(host, m, prune_order)
+    for got, want in zip(emitted, out[:4]):
+        if not torch.equal(got, want[idx.cuda()].cpu()):
+            raise AssertionError(f"{label}: the emit of the card's state "
+                                 "differs card vs CPU")
+    diff = kept = 0
+    for i, b in enumerate(clouds):
+        mine = out[0][b][out[3][b]].cpu()
+        theirs = cpu[0][i][cpu[3][i]]
+        near = torch.cdist(mine.double(), theirs.double()).amin(-1) < 1e-3
+        diff += int((~near).sum())
+        kept += len(mine)
+    if diff > KEPT_DIFF_FRAC * kept:
+        raise AssertionError(f"{label}: {diff} of the card's {kept} kept NDs "
+                             "are not kept in the full CPU run")
+    return diff, kept
+
+
+def run_variant(points, search, key_mode, prune_order):
+    """One downsample of the variant batch to M NDs."""
+    return ndt.ndt_downsample(points, M, search=search, key_mode=key_mode,
+                              prune_order=prune_order)
+
+
+def check_variant(out, label, key_mode):
+    """Every ordinary cloud converged with M NDs; the outlier cloud
+    converged with M NDs under pair keys, unconverged with fewer under
+    packed keys; every output finite."""
+    st, kept = out[4], out[3].sum(-1)
+    if not bool(st.converged[:-1].all()) or not bool((kept[:-1] == M).all()):
+        raise AssertionError(f"{label}: an ordinary cloud did not converge "
+                             f"to {M} NDs")
+    if key_mode == "pair":
+        if not bool(st.converged[-1]) or int(kept[-1]) != M:
+            raise AssertionError(f"{label}: the outlier cloud did not converge")
+    elif bool(st.converged[-1]) or int(kept[-1]) >= M:
+        raise AssertionError(f"{label}: the outlier cloud reported converged "
+                             "under packed keys")
+    if not (bool(torch.isfinite(out[0]).all())
+            and bool(torch.isfinite(out[1]).all())):
+        raise AssertionError(f"{label}: non-finite outputs")
+
+
+def prune_check(points, state, out):
+    """ndt_prune(state, PRUNE_M, "legacy_c") on the card: every cloud keeps
+    min(num_valid, PRUNE_M) NDs, each of them one of the downsample's
+    (the removed set is a prefix of one ranking), and the CPU's prune of
+    the same state gives the same outputs bit for bit. Returns its ms
+    (CUDA events, median of 20)."""
+    pruned = ndt.ndt_prune(state, PRUNE_M, "legacy_c")
+    want = torch.clamp(state.num_valid, max=PRUNE_M)
+    if not torch.equal(pruned[3].sum(-1).to(want.dtype), want):
+        raise AssertionError("legacy_c prune: wrong kept counts")
+    for b in range(B):
+        fine = out[0][b][out[3][b]]
+        coarse = pruned[0][b][pruned[3][b]]
+        hits = (coarse[:, None, :] == fine[None]).all(-1).any(-1)
+        if not bool(hits.all()):
+            raise AssertionError(f"legacy_c prune: cloud {b} kept an ND the "
+                                 "downsample did not")
+    host = ndt.NDTResult(**{f.name: getattr(state, f.name).cpu()
+                            for f in dataclasses.fields(ndt.NDTResult)})
+    for got, want in zip(ndt._emit(host, PRUNE_M, "legacy_c"), pruned):
+        if not torch.equal(got, want.cpu()):
+            raise AssertionError("legacy_c prune differs card vs CPU")
+    return time_ms(lambda: ndt.ndt_prune(state, PRUNE_M, "legacy_c"))
+
+
+def ndt_variants_phase():
+    """K1 held against its plain version on the pair-key build of the
+    variant batch (its outlier cloud gives segment ids and tags the packed
+    path never does); then, counted, each variant of VARIANTS: a warm-up
+    and VARIANT_REQUESTS timed downsamples, each checked, one K1 launch
+    each, the host syncs of one, the CPU_CLOUDS against the CPU; and the
+    legacy_c prune. Returns (K1 launches, K1's max_abs_err)."""
+    t0 = time.perf_counter()
+    points = variant_batch()
+    err = check_kernel(canonical_inputs(points, key_mode="pair"),
+                       "pair-key variant batch with the outlier cloud")
+    for kernel in KERNELS:
+        kernel.launches = 0
+    k1 = sm.fused_moments_sorted
+    for search, key_mode, prune_order in VARIANTS:
+        label = f"ndt {search}/{key_mode}/{prune_order}"
+        run_variant(points, search, key_mode, prune_order)  # warm-up
+        lat, host = [], []
+        for i in range(VARIANT_REQUESTS):
+            before = k1.launches
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            out = run_variant(points, search, key_mode, prune_order)
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t1) * 1e3)
+            lat.append(start.elapsed_time(end))
+            if k1.launches - before != 1:
+                raise AssertionError(f"{label}: {k1.launches - before} K1 "
+                                     "launches, expected 1")
+            check_variant(out, f"{label} request {i}", key_mode)
+        syncs = count_syncs(lambda: run_variant(points, search, key_mode,
+                                                prune_order))
+        diff, kept = check_variant_vs_cpu(points, out, label, key_mode,
+                                          prune_order)
+        med = statistics.median(lat)
+        st = out[4]
+        print(f"{label}: median {med:.3f} ms/request (events; "
+              f"{', '.join(f'{v:.3f}' for v in lat)}), "
+              f"{statistics.median(host):.3f} ms (host), "
+              f"{B / med * 1e3:.1f} clouds/s; {syncs} host syncs flagged per "
+              f"request; outlier cloud converged {bool(st.converged[-1])}, "
+              f"kept {int(out[3][-1].sum())}, voxel "
+              f"{float(st.voxel_size[-1]):.6f}, len_x {int(st.lens[-1, 0])}; "
+              f"card == CPU on clouds {CPU_CLOUDS} ({diff} of {kept} kept "
+              "NDs not kept in the full CPU run)")
+        if prune_order == "legacy_c":
+            prune_ms = prune_check(points, st, out)
+            print(f"ndt_prune to {PRUNE_M} (legacy_c): {prune_ms:.4f} ms, "
+                  "card == CPU, kept NDs a subset of the downsample's")
+    launches = k1.launches
+    want = len(VARIANTS) * (VARIANT_REQUESTS + 2)
+    if launches != want:
+        raise AssertionError(f"ndt variants: {launches} K1 launches, "
+                             f"expected {want}")
+    print(f"ndt variants phase took {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
+def pointnet_batch(n_clouds, n_points, seed):
+    """SyntheticSeg clouds (C classes) and their int labels."""
+    ds = SyntheticSeg(C, n_points, length=n_clouds, seed=seed)
+    pts = np.stack([ds[i][0] for i in range(n_clouds)])
+    labels = np.stack([ds[i][1].argmax(-1) for i in range(n_clouds)])
+    return pts, labels.astype(np.int32)
+
+
+def write_seg_tree(path, n_clouds, n_points):
+    """A CARLA-style tree of PLY clouds with a class column (SyntheticSeg,
+    C + 1 class tags), written unless present. Returns the path."""
+    if os.path.isdir(path) and len(os.listdir(path)) == n_clouds:
+        return path
+    pts, labels = pointnet_batch(n_clouds, n_points, seed=0)
+    for i in range(n_clouds):
+        write_ply(os.path.join(path, f"cloud_{i:03d}.ply"), pts[i],
+                  classes=labels[i])
+    return path
+
+
+def small_pointnet_step_check():
+    """The PointNet train step card vs CPU (compare_step), the gradients
+    of each against the step in float64: the small batch's clouds and
+    labels, no K1 launch."""
+    step, _ = make_pointnet_seg_step(SMALL_C)
+    compare_step("pointnet small step", step,
+                 small_state(PointNetSegmentation), small_batch(), 0,
+                 len(SMALL_SEEDS) * SMALL_N, grad_tol=PN_GRAD_TOL, ref64=True)
+
+
+def pointnet_phase():
+    """The PointNet step card vs CPU; TRAIN_STEPS timed steps at the
+    trainer's full width (B 16, N 4160, C classes, feature_dim 768) with
+    the split forward / loss + backward / optimizer, host syncs (none
+    expected) and peak memory; then the PointNet trainer CLI for an epoch
+    and a resumed one on a CarlaSeg tree it reads from build/. Returns its
+    K1 launches (none)."""
+    t0 = time.perf_counter()
+    small_pointnet_step_check()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    pts, labels = pointnet_batch(B, PN_N, seed=3)
+    batch = (torch.from_numpy(pts).cuda(), torch.from_numpy(labels).cuda())
+    state = create_train_state(C, F, lambda _: TRAIN_LR,
+                               model=PointNetSegmentation)
+    step, _ = make_pointnet_seg_step(C)
+    timed_train("pointnet", step, state, batch, 0, [])
+    del state, step, batch
+    tree = write_seg_tree(PN_TREE, PN_TREE_CLOUDS, PN_TREE_N)
+    trainer_runs("pointnet trainer", train_pointnet_cli.main,
+                 ["--epochs", "1", "--save_every", "1", "--out_path", PN_OUT,
+                  "--train_path", tree, "--val_path", tree, "--test_path",
+                  tree], resume=True)
+    launches = sm.fused_moments_sorted.launches
+    if launches:
+        raise AssertionError(f"pointnet: {launches} K1 launches")
+    print(f"pointnet phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def exact_cloud(n, seed):
+    """[n, 3] f32 whose squared distances are exact in f32: integers in
+    [-512, 512) times 1/8, so every sum of three squares is a multiple of
+    1/64 below 2**16."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-512, 512, size=(n, 3)) / 8.0).astype(np.float32)
+
+
+def carla_phase():
+    """Write CARLA_CLOUDS PLY clouds (N points, C + 1 class tags) under
+    build/; read them with the native reader and with numpy (bitwise
+    equal, both timed); FPS on the card against the CPU on an
+    exact-arithmetic cloud; CarlaNDTSeg (FPS 70000 -> 4160 points on the
+    card, then a tagged reference downsample to 2080 NDs) on CARLA_ITEMS
+    items, counted: one K1 launch an item, its host syncs, FPS ms a cloud
+    and FPS's device share (torch.profiler); then the segmentation trainer
+    CLI for an epoch with --train_path,
+    --val_path and --test_path on the tree (one K1 launch a step); K1
+    held against its plain version on the inputs that the items and the
+    trainer gave it (K1Recorder). Returns (K1 launches, K1's max_abs_err,
+    FPS entry for the log)."""
+    t0 = time.perf_counter()
+    tree = write_seg_tree(CARLA_DIR, CARLA_CLOUDS, N)
+    files = [os.path.join(tree, f) for f in sorted(os.listdir(tree))]
+    t_native, t_numpy = [], []
+    for f in files:
+        t1 = time.perf_counter()
+        a = read_ply(f)
+        t_native.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        b = read_ply(f, use_native=False)
+        t_numpy.append((time.perf_counter() - t1) * 1e3)
+        if not all(np.array_equal(x, y) and x.dtype == y.dtype
+                   for x, y in zip(a, b)):
+            raise AssertionError(f"read_ply: native differs from numpy on {f}")
+    native_ms, numpy_ms = statistics.median(t_native), statistics.median(t_numpy)
+    print(f"read_ply ({N} rows, {len(files)} files, median a file): native "
+          f"{native_ms:.3f} ms, numpy {numpy_ms:.3f} ms "
+          f"({numpy_ms / native_ms:.1f}x), bitwise equal")
+
+    exact = torch.from_numpy(exact_cloud(FPS_CHECK_N, seed=11))
+    gpu = farthest_point_sampling(exact.cuda(), PN_N).cpu()
+    cpu = farthest_point_sampling(exact, PN_N)
+    if not torch.equal(gpu, cpu):
+        raise AssertionError("FPS differs card vs CPU on the exact cloud")
+    print(f"fps {FPS_CHECK_N} -> {PN_N} on the exact-arithmetic cloud: "
+          "card == CPU")
+
+    for kernel in KERNELS:
+        kernel.launches = 0
+    k1 = sm.fused_moments_sorted
+    ds = CarlaNDTSeg(C, PN_N, CARLA_NDS, tree)
+    fps_ms, item_ms, syncs = [], [], []
+    with K1Recorder() as items:
+        for i in range(CARLA_ITEMS):
+            pts = torch.from_numpy(read_ply(files[i])[0].astype(np.float32)).cuda()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            farthest_point_sampling(pts, PN_N)
+            end.record()
+            end.synchronize()
+            fps_ms.append(start.elapsed_time(end))
+            before = k1.launches
+            t1 = time.perf_counter()
+            points, gt = ds[i]
+            item_ms.append((time.perf_counter() - t1) * 1e3)
+            if k1.launches - before != 1:
+                raise AssertionError(f"CarlaNDTSeg item {i}: "
+                                     f"{k1.launches - before} K1 launches")
+            if points.shape != (PN_N, 3) or gt.shape != (CARLA_NDS, C + 1):
+                raise AssertionError(f"CarlaNDTSeg item {i}: shapes "
+                                     f"{points.shape}, {gt.shape}")
+            if not (np.isfinite(points).all() and (gt.sum(-1) == 1).all()):
+                raise AssertionError(f"CarlaNDTSeg item {i}: bad values")
+            syncs.append(count_syncs(lambda: ds[i]))  # a second, counted item
+    fps_med = statistics.median(fps_ms)
+    print(f"fps {N} -> {PN_N} points, one cloud on the card: median "
+          f"{fps_med:.3f} ms ({', '.join(f'{v:.3f}' for v in fps_ms)}), "
+          f"{PN_N - 1} dependent steps")
+    n_kernels, busy_ms, wall_ms, top = device_share(
+        lambda: farthest_point_sampling(pts, PN_N))
+    print(f"fps profile: {n_kernels} kernels, device busy {busy_ms:.3f} ms "
+          f"of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}, profiler "
+          "on); most device time: " + "; ".join(f"{k} {v:.3f} ms"
+                                                for k, v in top))
+    if k1.launches != 2 * CARLA_ITEMS:
+        raise AssertionError(f"CarlaNDTSeg: {k1.launches} K1 launches for "
+                             f"{2 * CARLA_ITEMS} items")
+    print(f"CarlaNDTSeg ({N} -> {PN_N} FPS points -> {CARLA_NDS} NDs, "
+          f"reference search): median {statistics.median(item_ms):.3f} ms "
+          f"an item (host clock), one K1 launch an item, host syncs an item "
+          f"{syncs}")
+    before = k1.launches
+    with K1Recorder() as trainer:
+        runs, preps, steps = trainer_runs(
+            "carla trainer", train_cli.main,
+            ["--epochs", "1", "--save_every", "1", "--batch_size",
+             str(CARLA_CLOUDS), "--out_path", CARLA_DIR + "_train",
+             "--train_path", tree, "--val_path", tree, "--test_path", tree],
+            resume=False)
+    cli = k1.launches - before
+    if (steps, preps, cli) != (1, 3, 3):
+        raise AssertionError(f"carla trainer: {steps} steps, {preps} "
+                             f"preprocessings, {cli} K1 launches")
+    launches = k1.launches
+    # K1 against its plain version on the inputs the path gave it: an
+    # item's reference-search build ([1, 4160] FPS points, C + 1 slots) and
+    # the trainer's batch of CARLA_CLOUDS PLY clouds (tagged)
+    err = max(items.check("CarlaNDTSeg item"),
+              trainer.check("carla trainer"))
+    print(f"carla phase took {time.perf_counter() - t0:.1f} s")
+    return launches, err, {"name": "farthest_point_sampling",
+                           "ms_per_cloud": fps_med, "steps": PN_N - 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1392,18 +1918,24 @@ def main() -> int:
     train_launches, train_err, train_times = train_phase()
     cls_launches = classification_phase()
     ms_launches, ms_err, ms_times = multiscale_phase()
-    # K1's launches on the five main paths; its giant-, training- and
+    var_launches, var_err = ndt_variants_phase()
+    pn_launches = pointnet_phase()
+    carla_launches, carla_err, fps = carla_phase()
+    # K1's launches on the eight main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
     k1["launches"] = (served + giant_launches + train_launches + cls_launches
-                      + ms_launches)
-    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err)
+                      + ms_launches + var_launches + pn_launches
+                      + carla_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err,
+                            var_err, carla_err)
     k1["giant"] = giant_times
     k1["train"] = train_times
     k1["multiscale"] = ms_times
     k2 = k3_k2[1]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}
+    print(json.dumps({"not_a_tpu_kernel": fps}))
     print(json.dumps({"kernels": [k1] + k3_k2}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

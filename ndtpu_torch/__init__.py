@@ -11,6 +11,7 @@ This package imports torch and numpy only: never jax, flax or ``ndtpu``
 jax). Entry points default to ``device="cuda"`` and raise when no card is
 present unless the caller asks for ``"cpu"``.
 """
+from ndtpu_torch.core.ndt import NDTSampler
 from ndtpu_torch.utils.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["NDTSampler", "resolve_device"]

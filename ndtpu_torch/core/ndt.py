@@ -2,32 +2,38 @@
 ``ndtpu/core/ndt.py``).
 
 Steps, as in the JAX package (reference ``core_legacy/src/ndt.c:119-222``):
-cloud limits; the voxel-size search (the C bisection, or the seeded
-log-log secant search fused with the key + payload sort, optionally seeded
-by the subsampled Chao1 probe); the per-voxel moments (one launch of the
-segment-moments kernel for the whole batch); the 6-neighbour KL; the
-prune to ``n_desired`` and the compaction.
+cloud limits; the voxel-size search (the C bisection, the seeded log-log
+secant search fused with the key + payload sort, optionally seeded by the
+subsampled Chao1 probe, or the grid search of G candidates a round); the
+per-voxel moments (one launch of the segment-moments kernel for the whole
+batch); the 6-neighbour KL; the prune to ``n_desired`` (ascending, or the
+C core's ``legacy_c`` order) and the compaction. ``NDTSampler`` wraps one
+cloud in the reference sampler's host API.
 
 What changes against the JAX package:
 - ``vmap`` is an explicit leading batch dimension. Every function takes
   ``[B, N]`` structure-of-arrays tensors and per-cloud ``[B]`` scalars.
 - The batched ``while_loop`` of the searches is a Python loop over rounds.
-  Each round evaluates only the clouds that are still searching (a
-  finished cloud's carry stays frozen, as under ``vmap``), and deciding
-  which clouds those are costs one host sync per round.
-- Voxel keys are int64. A masked point gets ``KEY_PAD`` (2**62), above
-  every valid key, so the sort order equals the JAX int32 order
-  (``INT32_MAX`` padding); the (zy, x) pair keys of the reference search
-  fit one int64 exactly (< 2**55), so one sorted key serves both counts.
+  A finished cloud's carry stays frozen, as under ``vmap``; deciding
+  whether any cloud still searches costs one host sync per round.
+- Voxel keys are int64 ``(z * len_y + y) * len_x + x``. A masked point
+  gets ``KEY_PAD`` (2**62), above every valid key, so the sort order
+  equals the JAX int32 order (``INT32_MAX`` padding). Inside the (zy, x)
+  pair envelope (len_z * len_y < 2**31, every axis < 2**24) that key is
+  below 2**55, exact, and orders points as the JAX ``(zy, x)`` pair does.
+  So ``key_mode="pair"`` differs from ``"packed"`` only in the lower clamp
+  of the voxel size (``_min_pair_packable_voxel_size`` against
+  ``_min_packable_voxel_size``), and one sorted key serves both.
 - ``lax.sort`` (stable, multi-operand) is ``torch.sort(stable=True)`` of
   the key followed by a gather of the payload.
-- Only ``key_mode="packed"``, the gather-mode emit and the ascending prune
-  are ported here.
+- The JAX package's ``NDTPU_EMIT=payload`` emit is not ported: it gives
+  the gather-mode emit's outputs bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ndtpu_torch.core import voxel as vx
@@ -149,17 +155,20 @@ def _limits(px, py, pz, mask):
 def _voxel_keys(px, py, pz, mask, voxel_size, mins, maxs):
     """Per-point int64 voxel key (z * len_y + y) * len_x + x, the
     reference's x-fastest linearisation; KEY_PAD for masked points.
-    voxel_size [B]. Returns (key [B, N], lens [B, 3] i32, offsets)."""
+    voxel_size [...] (one per cloud, or per cloud and candidate), mins and
+    maxs [..., 3] and the coordinates [..., N] broadcast against it.
+    Returns (key [..., N], lens [..., 3] i32, offsets)."""
     lens, offsets = vx.estimate_voxel_grid(mins, maxs, voxel_size)
-    s = voxel_size[:, None]
+    s = voxel_size[..., None]
 
     def coord(p, a):
-        return vx.metric_to_voxel_axis(p, s, lens[:, a:a + 1],
-                                       offsets[:, a:a + 1])
+        return vx.metric_to_voxel_axis(p, s, lens[..., a:a + 1],
+                                       offsets[..., a:a + 1])
 
     x, y, z = coord(px, 0), coord(py, 1), coord(pz, 2)
     ln = lens.long()
-    key = torch.where(mask, (z * ln[:, 1:2] + y) * ln[:, 0:1] + x, KEY_PAD)
+    key = torch.where(mask, (z * ln[..., 1:2] + y) * ln[..., 0:1] + x,
+                      KEY_PAD)
     return key, lens, offsets
 
 
@@ -333,6 +342,77 @@ def _probe_seed_size(px, py, pz, mask, n_desired, mins, maxs, lo_min):
                          hi0)
 
 
+def _count_occupied_multi(px, py, pz, mask, sizes, mins, maxs):
+    """Occupied-voxel counts of each cloud [B] at G candidate sizes
+    ``sizes`` [B, G], from one sort of the [B, G, N] keys. Returns [B, G]
+    int64."""
+    key, _, _ = _voxel_keys(px[:, None], py[:, None], pz[:, None],
+                            mask[:, None], sizes, mins[:, None], maxs[:, None])
+    b, g, n = key.shape
+    skey = torch.sort(key.reshape(b * g, n), dim=-1).values
+    return _count_runs(skey).reshape(b, g)
+
+
+def _search_voxel_size_grid(px, py, pz, mask, n_desired, mins, maxs, lo_min,
+                            g: int = 6, max_rounds: int = 5):
+    """The grid-refinement search, batched: each round counts g
+    log-spaced candidates inside each cloud's bracket with one sort
+    (``_count_occupied_multi``), accepts the candidate in the band [n,
+    1.2 n] whose count lies nearest 1.1 n, else shrinks the bracket to the
+    gap between the largest too-fine and the smallest too-coarse size.
+    An unconverged cloud returns the smallest-count-above-n size seen, else
+    its bracket's geometric middle. At most ``max_rounds`` rounds; a
+    finished cloud's carry is frozen, as under ``vmap``; the loop stops
+    early when every cloud is done, which costs one host sync per round
+    (none after the last). The lower bound is clamped to ``lo_min`` [B],
+    the key mode's envelope. Returns (voxel_size [B] f32, converged [B]
+    bool)."""
+    upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
+    target = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD / 2.0), px)
+    lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
+    llo, lhi = torch.log(lo), torch.log(torch.clamp(lo, min=MAX_VOXEL_GUESS))
+    done = torch.zeros_like(llo, dtype=torch.bool)
+    acc = torch.zeros_like(llo)
+    best_g = torch.zeros_like(llo)
+    best_c = torch.full(llo.shape, _BIG_COUNT, dtype=torch.int64,
+                        device=llo.device)
+    fracs = torch.arange(1, g + 1, dtype=torch.float32,
+                         device=llo.device) / float(g + 1)
+    for r in range(max_rounds):
+        lsizes = llo[:, None] + (lhi - llo)[:, None] * fracs     # [B, G]
+        sizes = torch.exp(lsizes)
+        counts = _count_occupied_multi(px, py, pz, mask, sizes, mins, maxs)
+        countsf = counts.float()
+        in_band = (counts >= n_desired) & (countsf <= upper)
+        hit = in_band.any(-1)
+        pick = torch.where(in_band, (countsf - target).abs(),
+                           float("inf")).argmin(-1, keepdim=True)
+        # counts fall (weakly) with the size: the new bracket is the gap
+        # between the largest too-fine and the smallest too-coarse size
+        new_llo = torch.where(countsf > upper, lsizes, llo[:, None]).amax(-1)
+        new_lhi = torch.where(counts < n_desired, lsizes,
+                              lhi[:, None]).amin(-1)
+        new_lhi = torch.maximum(new_lhi, new_llo)
+        # fallback: the smallest count still >= n seen
+        cand = torch.where(counts >= n_desired, counts, _BIG_COUNT)
+        cand_c = cand.amin(-1)
+        cand_g = sizes.gather(-1, cand.argmin(-1, keepdim=True))[:, 0]
+        active = ~done
+        better = active & (cand_c < best_c)
+        best_c = torch.where(better, cand_c, best_c)
+        best_g = torch.where(better, cand_g, best_g)
+        acc = torch.where(active & hit, sizes.gather(-1, pick)[:, 0], acc)
+        llo = torch.where(active, new_llo, llo)
+        lhi = torch.where(active, new_lhi, lhi)
+        done = done | hit
+        if r + 1 < max_rounds and bool(done.all()):  # the round's host sync
+            break
+    mid = torch.exp((llo + lhi) * 0.5)
+    final = torch.where(done, acc,
+                        torch.where(best_c < _BIG_COUNT, best_g, mid))
+    return final, done
+
+
 def _sort_payload_at(px, py, pz, mask, classes, size, mins, maxs, tagged):
     """One stable voxel-key sort at ``size`` [B] with the coordinates (and
     the class tags, when tagged) as payload. Returns the sorted columns
@@ -353,7 +433,7 @@ def _search_and_sort_fast(px, py, pz, mask, classes, n_desired, mins, maxs,
     MAX_GUESS_ITERATIONS further evaluations; the last one is forced to
     the best fallback size (smallest count >= n seen) so the carried sort
     matches the returned size on unconverged clouds. The lower bound is
-    clamped to ``lo_min`` [B], the packed-key envelope.
+    clamped to ``lo_min`` [B], the key mode's envelope.
 
     Returns (voxel_size [B], converged [B], sorted columns)."""
     upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
@@ -478,9 +558,12 @@ def _build_state(px, py, pz, mask, classes, num_class_slots, voxel_size,
     )
 
 
-def _emit(state: NDTResult, n_out: int):
-    """Prune to n_out NDs and compact (ndt.c:28-117), ascending order:
-    the least divergent segments go first.
+def _emit(state: NDTResult, n_out: int, prune_order: str = "ascending"):
+    """Prune to n_out NDs and compact (ndt.c:28-117). ``prune_order``
+    "ascending" removes the least divergent segments first (by min pair
+    KL, the documented intent); "legacy_c" the C core's actual order, the
+    most divergent first (by max pair KL). A stable sort keeps voxel order
+    among ties; empty segments and segments without a finite key go last.
 
     Returns (points [B, n_out, 3], covs [B, n_out, 9], labels [B, n_out]
     i32, out_mask [B, n_out] bool); rows beyond the kept count are zero."""
@@ -488,7 +571,14 @@ def _emit(state: NDTResult, n_out: int):
     b = state.counts.shape[0]
     to_remove = torch.clamp(state.num_valid - n_out, min=0).long()
     occupied = state.counts > 0
-    key = torch.where(occupied, state.min_kl, float("inf"))
+    if prune_order == "legacy_c":
+        key = torch.where(occupied & torch.isfinite(state.max_kl),
+                          -state.max_kl, float("inf"))
+    elif prune_order == "ascending":
+        key = torch.where(occupied, state.min_kl, float("inf"))
+    else:
+        raise ValueError(
+            f"prune_order must be ascending or legacy_c: {prune_order!r}")
     # sort 1: stable ascending prune key; row i of the order has rank i
     seg_by_kl = torch.sort(key, dim=-1, stable=True).indices
     ar = torch.arange(k, device=key.device)
@@ -513,16 +603,29 @@ def _emit(state: NDTResult, n_out: int):
     return pcl, covs, labels, out_mask
 
 
+def _envelope(mins, maxs, key_mode):
+    """The smallest voxel size [B] whose keys are exact in ``key_mode``."""
+    if key_mode == "pair":
+        return _min_pair_packable_voxel_size(mins, maxs)
+    if key_mode == "packed":
+        return _min_packable_voxel_size(mins, maxs)
+    raise ValueError(f"key_mode must be packed or pair: {key_mode!r}")
+
+
 def _search(px, py, pz, mask, classes, n_desired, mins, maxs, tagged, search,
-            fixed_voxel_size, warm_start_size):
+            fixed_voxel_size, warm_start_size, key_mode="packed"):
     """Pick each cloud's voxel size. Returns (voxel_size [B], converged
     [B], the sorted columns at that size or None)."""
-    envelope = _min_packable_voxel_size(mins, maxs)
+    envelope = _envelope(mins, maxs, key_mode)
     if fixed_voxel_size is not None:
         # clamp into the key envelope; a binding clamp is not converged
         requested = _f32(fixed_voxel_size, px).expand(px.shape[0])
         voxel_size = torch.maximum(requested, envelope)
         return voxel_size, voxel_size <= requested, None
+    if search == "grid":
+        voxel_size, converged = _search_voxel_size_grid(
+            px, py, pz, mask, n_desired, mins, maxs, lo_min=envelope)
+        return voxel_size, converged, None
     if search in ("fast", "probe"):
         override = warm_start_size
         if search == "probe" and warm_start_size is None:
@@ -533,7 +636,8 @@ def _search(px, py, pz, mask, classes, n_desired, mins, maxs, tagged, search,
             lo_min=envelope, tagged=tagged, size0_override=override,
         )
     if search != "reference":
-        raise ValueError(f"search must be reference, fast or probe: {search!r}")
+        raise ValueError(
+            f"search must be reference, fast, probe or grid: {search!r}")
     # exact C trajectory with the pair count, then clamped into the build
     # envelope; a binding clamp is reported as unconverged
     voxel_size, converged = _search_voxel_size(
@@ -545,8 +649,9 @@ def _search(px, py, pz, mask, classes, n_desired, mins, maxs, tagged, search,
 
 
 def ndt_downsample(points, n_desired: int, mask=None, classes=None,
-                   num_class_slots: int = 1, search: str = "reference",
-                   fixed_voxel_size=None, warm_start_size=None):
+                   num_class_slots: int = 1, prune_order: str = "ascending",
+                   search: str = "reference", fixed_voxel_size=None,
+                   key_mode: str = "packed", warm_start_size=None):
     """Full NDT downsample of a batch of clouds (ndt.c:119-222).
 
     Args:
@@ -555,10 +660,17 @@ def ndt_downsample(points, n_desired: int, mask=None, classes=None,
       mask: optional [B, N] bool validity (padding rows False).
       classes: optional [B, N] int class tags in [0, num_class_slots).
       num_class_slots: n_classes + 1 in reference terms; 1 = untagged.
+      prune_order: "ascending" (the documented intent) or "legacy_c" (the
+        C core's most-divergent-first order).
       search: "reference" (the exact C bisection), "fast" (seeded secant
-        fused with the payload sort) or "probe" ("fast" seeded by the
-        Chao1 probe).
+        fused with the payload sort), "probe" ("fast" seeded by the Chao1
+        probe) or "grid" (6 log-spaced candidates a round, one sort each).
       fixed_voxel_size: optional scalar or [B]; skips the search.
+      key_mode: "packed" clamps voxel sizes to the < 2**31-cell grid
+        envelope and reports ``converged=False`` where that clamp kept a
+        cloud from the band (a dense cluster with a km-scale outlier);
+        "pair" clamps to the (zy, x) pair envelope (len_z * len_y <
+        2**31), where such clouds converge.
       warm_start_size: optional scalar or [B]; seeds "fast"/"probe".
 
     Returns (pcl [B, n, 3], covs [B, n, 9], labels [B, n] i32,
@@ -579,16 +691,68 @@ def ndt_downsample(points, n_desired: int, mask=None, classes=None,
     voxel_size, converged, presorted = _search(
         px, py, pz, mask, classes, n_desired, mins, maxs,
         num_class_slots > 1, search, fixed_voxel_size, warm_start_size,
+        key_mode,
     )
     state = _build_state(px, py, pz, mask, classes, num_class_slots,
                          voxel_size, converged, mins, maxs, k_max,
                          presorted=presorted)
-    pcl, covs, labels, out_mask = _emit(state, n_desired)
+    pcl, covs, labels, out_mask = _emit(state, n_desired, prune_order)
     return pcl, covs, labels, out_mask, state
 
 
-def ndt_prune(state: NDTResult, n_out: int):
+def ndt_prune(state: NDTResult, n_out: int, prune_order: str = "ascending"):
     """Second-stage prune to a coarser resolution: the removed set is a
-    prefix of the same min-KL ranking, so this is the emit with a larger
+    prefix of the same ranking, so this is the emit with a larger
     to_remove."""
-    return _emit(state, n_out)
+    return _emit(state, n_out, prune_order)
+
+
+class NDTSampler:
+    """Host-side wrapper of one cloud with the reference sampler's API
+    (``NDT_Sampler.{downsample, prune, cleanup}``, ndt_legacy.py:45-240):
+    numpy in, numpy out (points and covariances float64, labels uint16),
+    the NDTResult kept between ``downsample`` and ``prune``. Runs on
+    ``device``, the card unless the caller asks for the CPU, with the
+    reference search and the ascending prune."""
+
+    def __init__(self, point_cloud, classes=None, num_classes: int = 0,
+                 device="cuda"):
+        dev = resolve_device(device)
+        pts = np.asarray(point_cloud, dtype=np.float32)
+        self._points = torch.from_numpy(pts).to(dev)[None]
+        self._classes = None
+        if classes is not None:
+            cls = np.asarray(classes, dtype=np.int32)
+            self._classes = torch.from_numpy(cls).to(dev)[None]
+        self._num_class_slots = int(num_classes) + 1
+        self._state = None
+
+    @staticmethod
+    def _host(pcl, covs, labels):
+        return (pcl[0].cpu().numpy().astype(np.float64),
+                covs[0].cpu().numpy().astype(np.float64),
+                labels[0].cpu().numpy().astype(np.uint16))
+
+    def downsample(self, num_desired_nds: int):
+        pcl, covs, labels, _, state = ndt_downsample(
+            self._points, int(num_desired_nds), None, self._classes,
+            num_class_slots=self._num_class_slots)
+        self._state = state
+        return self._host(pcl, covs, labels)
+
+    def prune(self, num_desired_nds: int):
+        if self._state is None:
+            raise RuntimeError("call downsample() before prune()")
+        if int(num_desired_nds) > int(self._state.num_valid[0]):
+            # the reference's prune_nds errors when the target exceeds the
+            # valid count (ndt.c:36-39)
+            raise ValueError(
+                "Number of desired normal distributions is greater than the "
+                "number of valid distributions!"
+            )
+        pcl, covs, labels, _ = ndt_prune(self._state, int(num_desired_nds))
+        return self._host(pcl, covs, labels)
+
+    def cleanup(self):
+        """Drops the state; there is no native memory to free."""
+        self._state = None

@@ -10,10 +10,13 @@ Mapping (flax auto-names, in creation order):
   BatchNorm_k/{scale, bias}          -> BatchNorm.{weight, bias}
   batch_stats/BatchNorm_k/{mean,var} -> BatchNorm.{running_mean, running_var}
   TNet:    Dense_0..2 = conv1..3, Dense_3..5 = fc1..3, BatchNorm_0..4 = bn1..5
-  NDTNet:  TNet_0 = t1, TNet_1 = t2, Dense_0..2 = conv1..3, BatchNorm_0..2
+  NDTNet, PointNet: TNet_0 = t1, TNet_1 = t2, Dense_0..2 = conv1..3,
+           BatchNorm_0..2 = bn1..3
   NDTNetSegmentation: NDTNet_0 = feature_extractor, Dense_0..3 = conv1..4,
            BatchNorm_0..2 = bn1..3
   NDTNetClassification: NDTNet_0 = feature_extractor, Dense_0..2 = conv1..3
+  PointNetSegmentation, PointNetClassification: as the NDT-Net heads, with
+           PointNet_0 = feature_extractor
   ResidualConnection: Dense_0 = conv1 (kernel [in_points, out_points]),
            BatchNorm_0 = bn1
   NDTNetPP: NDTNet_0 = ndtnet1, NDTNet_1 = ndtnet2 (one module, both
@@ -41,6 +44,11 @@ from ndtpu_torch.models.ndtnetpp import (
     NDTNetPPClassification,
     NDTNetPPSegmentation,
     ResidualConnection,
+)
+from ndtpu_torch.models.pointnet import (
+    PointNet,
+    PointNetClassification,
+    PointNetSegmentation,
 )
 from ndtpu_torch.models.tnet import TNet
 
@@ -80,7 +88,7 @@ def _tnet(m, params, stats):
                        ["bn1", "bn2", "bn3", "bn4", "bn5"])
 
 
-def _ndtnet(m, params, stats):
+def _backbone(m, params, stats):
     yield from _tnet(m.t1, params["TNet_0"], _sub(stats, "TNet_0"))
     yield from _tnet(m.t2, params["TNet_1"], _sub(stats, "TNet_1"))
     yield from _layers(m, params, stats, ["conv1", "conv2", "conv3"],
@@ -95,6 +103,9 @@ _CLS_HEAD = (["conv1", "conv2", "conv3"], [])
 _TREES = {
     NDTNetSegmentation: ([("feature_extractor", "NDTNet_0")], _SEG_HEAD),
     NDTNetClassification: ([("feature_extractor", "NDTNet_0")], _CLS_HEAD),
+    PointNetSegmentation: ([("feature_extractor", "PointNet_0")], _SEG_HEAD),
+    PointNetClassification: ([("feature_extractor", "PointNet_0")],
+                             _CLS_HEAD),
     ResidualConnection: ([], (["conv1"], ["bn1"])),
     NDTNetPP: ([("ndtnet1", "NDTNet_0"), ("ndtnet2", "NDTNet_1"),
                 ("residual", "ResidualConnection_0")], (["conv1"], ["bn1"])),
@@ -107,8 +118,8 @@ _TREES = {
 def _pairs(model, params, stats):
     """Every (port tensor, flax leaf) pair of ``model``; the BatchNorm
     buffers only when ``stats`` is given."""
-    if isinstance(model, NDTNet):
-        yield from _ndtnet(model, params, stats)
+    if isinstance(model, (NDTNet, PointNet)):
+        yield from _backbone(model, params, stats)
     elif isinstance(model, TNet):
         yield from _tnet(model, params, stats)
     elif type(model) in _TREES:
@@ -123,7 +134,8 @@ def _pairs(model, params, stats):
 
 def load_jax_variables(model, variables):
     """Fill ``model`` (TNet, NDTNet, NDTNetSegmentation,
-    NDTNetClassification, ResidualConnection or an NDT-Net++ model) in
+    NDTNetClassification, ResidualConnection, an NDT-Net++ model or a
+    PointNet model) in
     place from the flax variables of its JAX counterpart. Returns the
     model."""
     with torch.no_grad():

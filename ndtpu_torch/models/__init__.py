@@ -12,4 +12,9 @@ from ndtpu_torch.models.ndtnetpp import (  # noqa: F401
     NDTNetPPSegmentation,
     ResidualConnection,
 )
+from ndtpu_torch.models.pointnet import (  # noqa: F401
+    PointNet,
+    PointNetClassification,
+    PointNetSegmentation,
+)
 from ndtpu_torch.models.tnet import TNet  # noqa: F401

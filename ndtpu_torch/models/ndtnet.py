@@ -118,10 +118,18 @@ class NDTNetSegmentation(nn.Module):
 
     def forward(self, points, covariances, return_logits: bool = False):
         x, x_t2 = self.feature_extractor(points, covariances)
-        pooled = x.amax(dim=1, keepdim=True).expand_as(x)
-        x = torch.cat([x_t2, pooled], dim=-1)
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        x = torch.relu(self.bn3(self.conv3(x)))
-        x = self.conv4(x)
-        return x if return_logits else torch.log_softmax(x, dim=-1)
+        return segmentation_head(self, x, x_t2, return_logits)
+
+
+def segmentation_head(model, x, x_t2, return_logits):
+    """The per-point head on the backbone's features [B, N, F] and x_t2
+    [B, N, 64]: the max-pooled features broadcast beside x_t2, ReLU(BN(
+    conv)) three times, conv4, then log-softmax unless logits are asked
+    for (the head of NDTNetSegmentation and PointNetSegmentation)."""
+    pooled = x.amax(dim=1, keepdim=True).expand_as(x)
+    x = torch.cat([x_t2, pooled], dim=-1)
+    x = torch.relu(model.bn1(model.conv1(x)))
+    x = torch.relu(model.bn2(model.conv2(x)))
+    x = torch.relu(model.bn3(model.conv3(x)))
+    x = model.conv4(x)
+    return x if return_logits else torch.log_softmax(x, dim=-1)

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+"""Build and load the port's native libraries (plain C interface + ctypes).
 
 Each kernel source under ``ndtpu_torch/csrc`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library under ``build/ndtpu_torch/`` at the
 repository root (listed in ``.gitignore``), at first use and never at
 import. The library's file name carries a hash of the source, so an
 edited source rebuilds and an unchanged one is loaded as it is. Compiling
-to a temporary name and renaming makes concurrent first uses safe.
+to a temporary name and renaming makes concurrent first uses safe. The
+host C++ PLY reader (``ndtpu_torch/native``) is built the same way with
+its own compiler and flags (``build_library``).
 """
 from __future__ import annotations
 
@@ -37,15 +39,6 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = _CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
-
-
 def compile_source(src: Path, out: Path, *flags: str) -> str:
     """nvcc ``src`` into the shared library ``out`` (with ``flags`` after
     the port's own); returns what the compiler printed."""
@@ -59,19 +52,34 @@ def compile_source(src: Path, out: Path, *flags: str) -> str:
     return proc.stdout + proc.stderr
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library of the same hash exists."""
-    out = library_path(source)
+def build_library(src: Path, flags, compile_fn) -> Path:
+    """``compile_fn(src, out)`` into the library of ``src`` and ``flags``,
+    named by a hash of both, unless it exists: to a temporary name, then
+    renamed."""
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(flags).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    compile_source(_CSRC / source, tmp)
+    compile_fn(src, tmp)
     os.replace(tmp, out)
     return out
 
 
+def load_library(src: Path, flags, compile_fn) -> ctypes.CDLL:
+    """Build (if needed, one build at a time) and load ``src``'s library."""
+    with _lock:
+        return ctypes.CDLL(str(build_library(src, flags, compile_fn)))
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless a library of the same hash exists."""
+    return build_library(_CSRC / source, NVCC_FLAGS, compile_source)
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<source>``."""
-    with _lock:
-        return ctypes.CDLL(str(build(source)))
+    return load_library(_CSRC / source, NVCC_FLAGS, compile_source)

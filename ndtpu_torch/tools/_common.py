@@ -1,9 +1,10 @@
 """Shared helpers of the port's tools (port of ``tools/_common.py``):
-the trainer's datasets."""
+the segmentation trainers' datasets."""
 from __future__ import annotations
 
 import numpy as np
 
+from ndtpu_torch.data.carla import CarlaSeg
 from ndtpu_torch.data.synthetic import SyntheticSeg
 
 
@@ -23,9 +24,12 @@ class IntLabels:
         return pts, np.argmax(gt, axis=-1).astype(np.int32)
 
 
-def make_dataset(n_classes, n_samples, synthetic_length=32, seed=0,
-                 int_labels=False):
-    """The synthetic segmentation set (``SyntheticSeg``); the CARLA reader
-    of the JAX tools waits for the ROADMAP item "Data"."""
-    ds = SyntheticSeg(n_classes, n_samples, length=synthetic_length, seed=seed)
+def make_dataset(n_classes, n_samples, path=None, synthetic_length=32,
+                 seed=0, int_labels=False):
+    """``CarlaSeg`` on the PLY tree at ``path`` (its generator seeded 0,
+    as the JAX tools seed it), else the synthetic set (``SyntheticSeg``
+    of ``synthetic_length`` clouds from ``seed``)."""
+    ds = (CarlaSeg(n_classes, n_samples, path) if path else
+          SyntheticSeg(n_classes, n_samples, length=synthetic_length,
+                       seed=seed))
     return IntLabels(ds) if int_labels else ds

@@ -9,8 +9,9 @@ or classification:
         --epochs 1 --batch_size 4 --n_samples 512 --n_desired_nds 32 \\
         --n_classes 8 --feature_dim 32 --out_path build/train_cls
 
-Segmentation trains on the synthetic set (``SyntheticSeg``);
-classification on a ModelNet-style tree (``--train_path`` and friends;
+Segmentation trains on CARLA PLY trees (``--train_path``, ``--val_path``,
+``--test_path``; ``CarlaSeg``, the synthetic ``SyntheticSeg`` for a split
+without a path); classification on a ModelNet-style tree (the same flags;
 ``--val_path`` equal to ``--train_path`` carves a 1-in-10 holdout out of
 the train split) or, without paths, on ``SyntheticCls``, with the labels
 one-hot over ``--n_classes``. Each epoch trains over the train set
@@ -163,7 +164,8 @@ def main(argv=None):
         if classify:
             ds = make_cls_dataset(cfg, split, seed)
         else:
-            ds = make_dataset(cfg.n_classes, cfg.n_samples,
+            path = (cfg.train_path, cfg.val_path, cfg.test_path)[seed]
+            ds = make_dataset(cfg.n_classes, cfg.n_samples, path,
                               synthetic_length=cfg.synthetic_length, seed=seed,
                               int_labels=cfg.int_labels)
         if cfg.streaming:

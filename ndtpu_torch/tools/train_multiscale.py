@@ -10,7 +10,8 @@
 Two NDT resolutions, fine ``--n_desired_nds`` (default 8160) and coarse
 ``--n_desired_nds1`` (4080), batch 4 and feature_dim 1024 by default
 (the reference's train_multiscale.py:17-29). It trains
-NDTNetPPSegmentation on the synthetic segmentation set: each epoch a train
+NDTNetPPSegmentation on CARLA PLY trees (``--train_path``, ``--val_path``)
+or the synthetic segmentation set: each epoch a train
 pass and a val pass, a checkpoint ``ndtnetpp_<task>_<epoch>`` every
 ``save_every`` epochs, ``--resume <dir>`` to continue; there is no test
 split, as in the JAX trainer. Only the segmentation task has a multiscale
@@ -40,8 +41,8 @@ def main(argv=None):
                          "voxel sizes")
     fine, coarse = cfg.n_desired_nds, cfg.n_desired_nds1
     sets = []
-    for seed in (0, 1):  # train, val
-        ds = make_dataset(cfg.n_classes, cfg.n_samples,
+    for seed, path in enumerate((cfg.train_path, cfg.val_path)):
+        ds = make_dataset(cfg.n_classes, cfg.n_samples, path,
                           synthetic_length=cfg.synthetic_length, seed=seed,
                           int_labels=cfg.int_labels)
         sets.append(CachedDataset(ds) if cfg.cache_dataset else ds)

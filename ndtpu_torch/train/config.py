@@ -46,7 +46,7 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     use_pallas: str = "auto"
-    # voxel-size search: probe, fast or reference (see core/ndt.py)
+    # voxel-size search: probe, fast, reference or grid (see core/ndt.py)
     search: str = "probe"
     # ground truth as [B, N] int32 class tags instead of one-hot [B, N, C+1]
     int_labels: bool = True
@@ -73,14 +73,6 @@ class TrainConfig:
                 f"--search must be fast|probe|reference|grid, got {self.search!r}"
             )
         waits = [
-            ("classification" not in self.task
-             and any((self.train_path, self.val_path, self.test_path)),
-             "--train_path/--val_path/--test_path of the segmentation task "
-             "(CarlaSeg) wait for the ROADMAP item \"Data\"; leave them "
-             "unset for the synthetic set"),
-            (self.search == "grid",
-             "--search grid waits for the ROADMAP item \"The rest of "
-             "core/ndt.py\""),
             (self.use_pallas != "auto",
              "--use_pallas: the tensors' device picks the route (the CUDA "
              "kernel on the card); only 'auto' is accepted"),

@@ -1,12 +1,14 @@
-"""Train and eval steps of NDT-Net segmentation, NDT-Net classification
-and NDT-Net++ segmentation (port of ``ndtpu/train/loop.py``).
+"""Train and eval steps of NDT-Net segmentation, NDT-Net classification,
+NDT-Net++ segmentation and the PointNet baseline (port of
+``ndtpu/train/loop.py``).
 
 A step is the JAX step's sequence in eager PyTorch: the NDT preprocessing
 without a gradient (on the card one segment-moments kernel launch per
 resolution, tagged with the ground truth's class slots where there is a
 per-point ground truth), the train-mode forward to logits, softmax
 cross-entropy from logits (over the kept NDs for segmentation), the
-backward, and one Adam update at the schedule's rate. Metrics come back as
+backward, and one Adam update at the schedule's rate (the PointNet step
+has no preprocessing: the model takes the points). Metrics come back as
 device scalars: nothing in the step after the preprocessing waits for the
 card.
 """
@@ -164,5 +166,39 @@ def make_multiscale_seg_step(fine_res: int, coarse_res: int, n_classes: int,
             logits, gt1, m1 = forward(state.model.eval(), points, gt)
             return {"loss": cross_entropy_loss(logits, gt1, m1),
                     "accuracy": accuracy(logits, gt1, m1)}
+
+    return step, eval_step
+
+
+def make_pointnet_seg_step(n_classes: int | None = None):
+    """(step, eval_step) for PointNetSegmentation (loop.py:246-290): no NDT
+    anywhere. ``step(state, points [B, N, 3], gt) -> (state, metrics)``
+    and ``eval_step(state, points, gt) -> metrics``, gt the one-hot [B, N,
+    C+1] or, with ``n_classes`` given, int class tags [B, N], one-hot
+    encoded on the device by a compare (a tag outside [0, n_classes] gives
+    a zero row, as ``jax.nn.one_hot``). The loss is the mean over every
+    point; metrics are device scalars, so the step makes no host sync."""
+
+    def one_hot(gt):
+        if n_classes is not None and gt.dim() == 2:
+            classes = torch.arange(n_classes + 1, device=gt.device)
+            return (gt[..., None] == classes).to(torch.float32)
+        return gt
+
+    def step(state, points, gt):
+        onehot = one_hot(gt)
+        logits = state.model.train()(points, return_logits=True)
+        loss = cross_entropy_loss(logits, onehot)
+        _update(state, loss)
+        with torch.no_grad():
+            acc = accuracy(logits, onehot)
+        return state, {"loss": loss.detach(), "accuracy": acc}
+
+    def eval_step(state, points, gt):
+        onehot = one_hot(gt)
+        with torch.no_grad():
+            logits = state.model.eval()(points, return_logits=True)
+            return {"loss": cross_entropy_loss(logits, onehot),
+                    "accuracy": accuracy(logits, onehot)}
 
     return step, eval_step

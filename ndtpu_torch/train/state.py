@@ -46,7 +46,8 @@ def create_train_state(num_classes: int, feature_dim: int, schedule,
                        seed: int = 0, device="cuda",
                        model=NDTNetSegmentation, **model_kw) -> TrainState:
     """A fresh ``model`` (a model class: NDTNetSegmentation,
-    NDTNetClassification, NDTNetPPSegmentation, ...; ``model_kw`` go to its
+    NDTNetClassification, NDTNetPPSegmentation, PointNetSegmentation, ...;
+    ``model_kw`` go to its
     constructor, e.g. fine_res and coarse_res) on ``device`` (the card
     unless the caller asks for the CPU), with random weights from ``seed``
     (drawn on the CPU, so every device gets the same model), and its

@@ -15,6 +15,7 @@ import torch
 
 from ndtpu_torch.core.ndt import ndt_downsample
 from ndtpu_torch.ops import segment_moments as sm
+from ndtpu_torch.ops.fps import farthest_point_sampling
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel.point_sharded import make_point_sharded_downsample
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
@@ -359,3 +360,70 @@ def test_multiscale_step_on_card_matches_cpu(cuda):
     and on the CPU (chip_smoke.small_multiscale_step_check): eight clouds
     at fine 16 and coarse 8 NDs, two K1 launches on the card."""
     chip_smoke.small_multiscale_step_check()
+
+
+def variant_points():
+    """Four clouds of 20000 points (make_batch), the last replaced by
+    chip_smoke's outlier cloud."""
+    pts = chip_smoke.make_batch(4, 20000, seed=2)
+    pts[-1] = chip_smoke.outlier_cloud(20000, seed=3)
+    return torch.from_numpy(pts)
+
+
+@pytest.mark.cuda
+def test_segment_moments_kernel_on_pair_key_inputs(cuda):
+    """K1 on the real sorted inputs of a pair-key build whose last cloud is
+    the outlier cloud (voxel coordinates up to ~40000 in the tag
+    columns): chip_smoke.check_kernel's checks."""
+    x = chip_smoke.canonical_inputs(variant_points().to(cuda), 500,
+                                    key_mode="pair")
+    assert float(x["tags"][2].max()) > 4096  # the outlier's x coordinate
+    chip_smoke.check_kernel(x, "pair-key inputs with the outlier cloud")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("search,key_mode,prune_order", [
+    ("grid", "packed", "ascending"), ("grid", "pair", "ascending"),
+    ("probe", "pair", "ascending"), ("probe", "packed", "legacy_c"),
+])
+def test_sampler_variants_on_card_match_cpu(cuda, search, key_mode,
+                                            prune_order):
+    """One K1 launch a downsample; the outlier cloud converged under pair
+    keys only; the card's state and emit against the CPU at the card's
+    sizes (chip_smoke.check_variant_vs_cpu)."""
+    pts = variant_points().to(cuda)
+    before = sm.fused_moments_sorted.launches
+    out = ndt_downsample(pts, 500, search=search, key_mode=key_mode,
+                         prune_order=prune_order)
+    assert sm.fused_moments_sorted.launches == before + 1
+    assert bool(out[4].converged[:-1].all())
+    assert bool(out[4].converged[-1]) == (key_mode == "pair")
+    chip_smoke.check_variant_vs_cpu(pts, out, search, key_mode, prune_order,
+                                    m=500, clouds=(0, 1, 2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_on_card_matches_cpu(cuda, masked):
+    """FPS indices on the card equal the CPU's on an exact-arithmetic
+    cloud (chip_smoke.exact_cloud: every distance exact in f32, ties
+    common), with and without a mask, batched."""
+    pts = torch.stack([torch.from_numpy(chip_smoke.exact_cloud(20000, s))
+                       for s in (1, 2)])
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(4).random((2, 20000))
+                                > 0.3)
+        mask[:, 0] = True
+    gpu = farthest_point_sampling(pts.to(cuda), 1000,
+                                  None if mask is None else mask.to(cuda))
+    cpu = farthest_point_sampling(pts, 1000, mask)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_pointnet_step_on_card_matches_cpu(cuda):
+    """One PointNet segmentation step of the same TrainState on the card
+    and on the CPU (chip_smoke.small_pointnet_step_check, compare_step's
+    tolerances): no K1 launch."""
+    chip_smoke.small_pointnet_step_check()

@@ -525,7 +525,7 @@ def test_synthetic_seg_and_batches_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data_axis", "model"], ["--train_path", "x"], ["--search", "grid"],
+    ["--data_axis", "model"],
     ["--use_pallas", "on"], ["--compute_dtype", "bfloat16"],
     ["--param_dtype", "bfloat16"], ["--device_cache"],
     ["--num_processes", "2"], ["--coordinator", "h:1"],
@@ -535,16 +535,35 @@ def test_config_raises_on_flags_not_ported(flag):
         TrainConfig.from_args(["--device", "cpu"] + flag)
 
 
+@pytest.mark.parametrize("flag,field,value", [
+    (["--train_path", "x", "--val_path", "y", "--test_path", "z"],
+     "train_path", "x"),
+    (["--search", "grid"], "search", "grid"),
+])
+def test_config_accepts_the_flags_of_the_rest_of_the_sampler_and_data(
+        flag, field, value):
+    """The segmentation trainers' PLY trees (CarlaSeg) and the grid
+    search are ported: the config takes them as the JAX config does."""
+    from ndtpu.train.config import TrainConfig as JaxTrainConfig
+
+    cfg = TrainConfig.from_args(["--device", "cpu"] + flag)
+    assert getattr(cfg, field) == value
+    assert {k: v for k, v in vars(cfg).items() if k != "device"} == vars(
+        JaxTrainConfig.from_args(flag))
+
+
 def test_config_defaults_match_the_jax_trainer():
     """The segmentation and classification trainers' configs, and the
-    multiscale trainer's (its default overrides, still overridable on the
-    command line), against the JAX package's."""
+    multiscale and PointNet trainers' (their default overrides, still
+    overridable on the command line), against the JAX package's."""
     from ndtpu.train.config import TrainConfig as JaxTrainConfig
 
     multiscale = dict(n_desired_nds=8160, batch_size=4, feature_dim=1024)
+    pointnet = dict(n_samples=4160, save_every=10)  # tools/train_pointnet.py:27
     for argv, overrides in ((["--no-int_labels"], {}),
                             (["--task", "classification", "--train_path", "m",
                               "--val_path", "m"], {}),
+                            ([], pointnet),
                             ([], multiscale)):
         ours = TrainConfig.from_args(["--device", "cpu"] + argv, **overrides)
         ref = JaxTrainConfig.from_args(argv, **overrides)
