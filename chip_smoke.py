@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet
-and CARLA data paths on one NVIDIA card and check them.
+"""Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet,
+CARLA data and trainer-extras paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -92,6 +92,25 @@ Phases, each of which ends the script with a non-zero exit on failure:
    device share and the host syncs an item; the segmentation trainer CLI for an epoch with
    --train_path/--val_path/--test_path on the tree (batch 8, three K1
    launches).
+11. Trainer extras (tools/train.py --device_cache --epoch_scan, bf16):
+   a DeviceCachedDataset of SyntheticSeg (32 clouds of 70000 points a
+   split) and the full-width segmentation state; one epoch of 2 steps per
+   step and one as a CUDA graph of the step (make_epoch_scan) with the
+   same order from the same weights, compared; the eval graph on the val
+   split; a graph epoch replayed under sync debug mode "error" (no host
+   sync), K1 once a replay (profiler) and held against its plain version
+   on the graph path's inputs; the graph step timed beside the eager step;
+   the sync-free preprocessing (fixed rounds) against the eager one (bit
+   for bit, timed); the --streaming and classification graphs; peak
+   memory; a bf16 step card vs CPU; 5 timed full-width bf16 steps of the
+   segmentation, classification, multiscale and PointNet steps; 3 bf16
+   serving requests; the eager step's optimizer stage with plain and
+   capturable Adam; the trainer CLI with --device_cache --compute_dtype
+   bfloat16 for an epoch and a resumed one (steps 2 -> 4). K1's launches
+   here are its wrapper's count (eager launches; it counts a call
+   captured into a graph apart, in ``captured``) plus one for each replay
+   of a graph that captured one K1 call; K1 is held against its plain
+   version after the counts are read.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -150,7 +169,12 @@ from ndtpu_torch.train.loop import (
     make_ndt_seg_step,
     make_pointnet_seg_step,
 )
-from ndtpu_torch.train.state import create_train_state
+from ndtpu_torch.train.state import create_train_state, make_capturable
+from ndtpu_torch.core.ndt import _fixed_rounds
+from ndtpu_torch.data.loader import DeviceCachedDataset
+from ndtpu_torch.tools._common import make_dataset
+from ndtpu_torch.train.config import TrainConfig
+from ndtpu_torch.train.loop import make_epoch_scan, run_epoch_scan
 
 B, N, M, C, F = 16, 70000, 1000, 28, 768
 K = ndt.max_segments(M)              # kernel rows: k_max (ids >= K dropped)
@@ -1900,6 +1924,500 @@ def carla_phase():
                            "ms_per_cloud": fps_med, "steps": PN_N - 1}
 
 
+# ---- the trainer extras: bf16, the device-resident dataset, the graph epoch ----
+
+EXTRAS_OUT = "build/chip_smoke_extras"
+EXTRAS_CLOUDS = 32                    # SyntheticSeg clouds a split (TrainConfig)
+GRAPH_TIMED = 5                       # timed one-step graph epochs
+PROFILE_ATTEMPTS = 3                  # profiled epochs a graph, at most
+PROFILE_PAD_CYCLES = 1_000_000        # spin kernel around a profiled span
+K1_NAME = "segment_moments_kernel"    # K1 in a profile
+BF16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+# bf16 card vs CPU: the loss of the same step within BF16_LOSS_RTOL (the
+# CPU tests hold the port's bf16 step to JAX's at 2e-2)
+BF16_LOSS_RTOL = 2e-2
+
+
+def event_ms(fn, runs=GRAPH_TIMED):
+    """Median device time of fn() (CUDA events around it; its host waits
+    included), after one untimed run, and the median host ms."""
+    fn()
+    dev, host = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return statistics.median(dev), statistics.median(host)
+
+
+def profiled_k1(fn):
+    """torch.profiler (the card's activity) over fn(): (fn's result, the K1
+    kernels the card ran, every kernel and copy seen). CUPTI reports the
+    kernels of a replayed graph one by one. A spin kernel before and
+    after fn() keeps fn's kernels off the trace's edges."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        out = fn()
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
+    k1 = seen = 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            seen += 1
+            k1 += K1_NAME in e.name
+    return out, k1, seen
+
+
+def without_sync(fn):
+    """fn() with torch's sync debug mode at "error": any op that makes the
+    host wait for the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def one_step_order(b):
+    """A one-step epoch over the first b clouds: [1, b] on the card."""
+    return torch.arange(b, device="cuda").reshape(1, b)
+
+
+def captured_k1(label, fn, graphs=1):
+    """fn(), which captures ``graphs`` CUDA graphs (a first run_epoch_scan
+    of a state and dataset, or a trainer run), each of a step that calls
+    K1 once: K1's wrapper must have counted ``graphs`` captured calls, so
+    that each replay of these graphs launches K1 once. Returns fn()'s
+    result."""
+    before = sm.fused_moments_sorted.captured
+    out = fn()
+    got = sm.fused_moments_sorted.captured - before
+    if got != graphs:
+        raise AssertionError(f"{label}: {got} K1 calls captured into "
+                             f"{graphs} graphs")
+    return out
+
+
+def graph_replays(label, scan, state, ds, b, steps=2):
+    """The graph epoch checked on the card: a ``steps``-step epoch replayed
+    under sync debug mode "error" (no host sync inside) and the profiler,
+    which must see K1 once a replay; then GRAPH_TIMED one-step epochs
+    timed, without the profiler, after one untimed (event_ms). The
+    profiler drops a kernel record now and then (identical profiled
+    epochs of one graph see different kernel totals), so an epoch in which
+    it saw fewer K1 kernels than replays is profiled again, up to
+    PROFILE_ATTEMPTS times in all; more K1 kernels than replays fail at
+    once. Returns (median ms a step, host ms, the replays made)."""
+    order = torch.arange(steps * b, device="cuda").reshape(steps, b) % len(ds)
+    replays = 0
+    for attempt in range(PROFILE_ATTEMPTS):
+        _, k1, seen = profiled_k1(
+            lambda: without_sync(lambda: scan(state, order, *ds.arrays)))
+        replays += steps
+        if seen == 0:
+            raise AssertionError(f"{label}: the profiler saw no kernel of "
+                                 "the replays")
+        if k1 == steps:
+            break
+        print(f"{label}: the profiler saw {k1} K1 kernels in {steps} replays "
+              f"({seen} kernels), attempt {attempt + 1}")
+        if k1 > steps or attempt + 1 == PROFILE_ATTEMPTS:
+            raise AssertionError(f"{label}: {k1} K1 launches in {steps} "
+                                 "replays")
+    ms, host = event_ms(lambda: scan(state, one_step_order(b), *ds.arrays))
+    print(f"{label}: graph step median {ms:.3f} ms (events), {host:.3f} ms "
+          f"(host), {b / ms * 1e3:.1f} clouds/s; a {steps}-step epoch "
+          f"replayed with no host sync (sync debug mode error); K1 {k1} "
+          f"launches in {steps} replays (profiler, {seen} kernels)")
+    return ms, host, replays + GRAPH_TIMED + 1
+
+
+def state_gaps(a, b):
+    """Largest |a - b| of each state_dict entry of two TrainStates."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return {k: float((sa[k].float() - sb[k].float()).abs().max()) for k in sa}
+
+
+def compare_epochs(label, eager, graph, me, mg, rows):
+    """The graph epoch against the per-step one from the same state: bit
+    for bit where nothing differs; otherwise the losses to STEP_RTOL, the
+    accuracies to one of ``rows``, the BatchNorm buffers to STEP_RTOL (atol
+    1e-5) and each parameter to 1e-6 where its last gradient is not f32
+    noise (>= GRAD_TOL of the leaf's largest), compare_step's rules.
+    Returns the largest parameter gap."""
+    gaps = state_gaps(eager, graph)
+    same = all(v == 0 for v in gaps.values()) and me == mg
+    print(f"{label}: graph epoch vs per-step epoch: "
+          + ("bit-identical" if same else
+             f"largest state gap {max(gaps.values()):.3e}, metrics "
+             f"{mg} vs {me}"))
+    if same:
+        return 0.0
+    for k in ("last_loss", "mean_loss"):
+        if abs(mg[k] - me[k]) > STEP_RTOL * abs(me[k]):
+            raise AssertionError(f"{label}: {k} {mg[k]} graph, {me[k]} eager")
+    for k in ("last_accuracy", "mean_accuracy"):
+        if abs(mg[k] - me[k]) > 1 / rows:
+            raise AssertionError(f"{label}: {k} differs")
+    ge, gg = dict(eager.model.named_parameters()), dict(graph.model.named_parameters())
+    for name, buf in eager.model.named_buffers():
+        torch.testing.assert_close(dict(graph.model.named_buffers())[name], buf,
+                                   rtol=STEP_RTOL, atol=1e-5)
+    for name, p in ge.items():
+        g = p.grad
+        keep = g.abs() >= GRAD_TOL * g.abs().max()
+        torch.testing.assert_close(gg[name][keep], p[keep], rtol=0, atol=1e-6)
+    return max(gaps.values())
+
+
+def seg_graph_epochs():
+    """The full-width segmentation state (TrainConfig's width, probe, int
+    labels, Adam at TRAIN_LR) and a DeviceCachedDataset of SyntheticSeg
+    (EXTRAS_CLOUDS clouds of N points a split): one epoch of 2 steps per
+    step (run_epoch over the dataset's loader) and one as the graph
+    (run_epoch_scan) with the same order from the same weights, compared;
+    the eval graph on the val split against the per-step eval; then the
+    graph checked and timed (graph_replays) beside the eager step, with K1
+    held against its plain version on the inputs the graph path gave it
+    (K1Recorder over the warm-up steps, checked by the caller after it has
+    read the launch counts). Returns (the recorder, the largest parameter
+    gap, the replays made, the timings)."""
+    splits = [DeviceCachedDataset(make_dataset(
+        C, N, synthetic_length=EXTRAS_CLOUDS, seed=s, int_labels=True), "cuda")
+        for s in (0, 1)]
+    train_ds, val_ds = splits
+    mb = sum(a.numel() * a.element_size() for a in train_ds.arrays) / 1e6
+    print(f"DeviceCachedDataset: {len(train_ds)} clouds, "
+          f"{[tuple(a.shape) for a in train_ds.arrays]}, {mb:.1f} MB on the card")
+    step, eval_step = make_ndt_seg_step(TRAIN_M, C, "probe")
+    # the graph's optimizer form on both sides: only the mechanics differ
+    eager = make_capturable(create_train_state(C, F, lambda _: TRAIN_LR))
+    eager, me = train_cli.run_epoch(step, eager, train_ds.loader(B, True, 0), True)
+    graph = create_train_state(C, F, lambda _: TRAIN_LR)
+    train_scan, eval_scan = make_epoch_scan(step), make_epoch_scan(eval_step, False)
+    steps = len(train_ds) // B
+    with K1Recorder() as rec:
+        graph, mg = captured_k1("segmentation epoch", lambda: run_epoch_scan(
+            train_scan, graph, train_ds, B, True, 0))
+    replays = steps
+    if graph.step != eager.step or graph.step != steps:
+        raise AssertionError(f"graph epoch: step {graph.step}")
+    gap = compare_epochs("segmentation", eager, graph, me, mg, 2 * B * TRAIN_M)
+    ve = train_cli.run_epoch(eval_step, graph, val_ds.loader(B, False), False)[1]
+    vg = captured_k1("segmentation eval epoch", lambda: run_epoch_scan(
+        eval_scan, graph, val_ds, B, False))[1]
+    replays += len(val_ds) // B
+    for k, v in ve.items():
+        if abs(vg[k] - v) > STEP_RTOL * abs(v):
+            raise AssertionError(f"eval graph: {k} {vg[k]}, per step {v}")
+    print(f"eval graph on the val split: {vg} (per step {ve})")
+    ms, host, r = graph_replays("segmentation", train_scan, graph, train_ds, B)
+    eval_ms, _, r2 = graph_replays("segmentation eval", eval_scan, graph,
+                                   val_ds, B)
+    # one more replay, under device_share's profiler
+    n_kernels, busy_ms, wall_ms, top = device_share(
+        lambda: train_scan(graph, one_step_order(B), *train_ds.arrays))
+    replays += r + r2 + 1
+    print(f"graph step profile: {n_kernels} kernels, device busy "
+          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%},"
+          " profiler on); most device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    batch = tuple(a[:B] for a in train_ds.arrays)
+    eager_ms, eager_host = event_ms(lambda: step(eager, *batch))
+    print(f"segmentation eager step (same call): median {eager_ms:.3f} ms "
+          f"(events), {eager_host:.3f} ms (host); graph {ms:.3f} ms")
+    prep = fixed_rounds_cost(*batch)
+    return rec, gap, replays, {
+        "graph_step_ms": ms, "graph_step_host_ms": host,
+        "graph_step_busy_ms": busy_ms, "graph_step_wall_ms": wall_ms,
+        "eval_graph_step_ms": eval_ms, "eager_step_ms": eager_ms,
+        "eager_step_host_ms": eager_host, **prep}
+
+
+def fixed_rounds_cost(points, labels):
+    """The sync-free preprocessing (_fixed_rounds: every search round over
+    the whole batch) against the eager one on the same batch: outputs
+    equal bit for bit on the card; times in turns."""
+    def prep(fixed):
+        if fixed:
+            with _fixed_rounds():
+                return ndt_preprocessing_with_state(TRAIN_M, points, labels, C,
+                                                    search="probe")
+        return ndt_preprocessing_with_state(TRAIN_M, points, labels, C,
+                                            search="probe")
+
+    a, b = prep(False), prep(True)
+    for x, y in zip(a[:4], b[:4]):
+        if not torch.equal(x, y):
+            raise AssertionError("fixed rounds: outputs differ from eager")
+    for f in dataclasses.fields(ndt.NDTResult):
+        x, y = getattr(a[4], f.name), getattr(b[4], f.name)
+        if not torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)):
+            raise AssertionError(f"fixed rounds: state {f.name} differs")
+    times = {False: [], True: []}
+    for fixed in (False, True, True, False) * 2:
+        times[fixed].append(event_ms(lambda: prep(fixed), runs=3))
+    (e_ms, e_host), (f_ms, f_host) = (
+        tuple(statistics.median(t[i] for t in times[k]) for i in (0, 1))
+        for k in (False, True))
+    syncs = count_syncs(lambda: prep(False)), count_syncs(lambda: prep(True))
+    print(f"preprocessing (M {TRAIN_M}, tagged, probe): eager {e_ms:.3f} ms "
+          f"(events), {e_host:.3f} ms (host), {syncs[0]} host syncs; fixed "
+          f"rounds {f_ms:.3f} ms, {f_host:.3f} ms (host), {syncs[1]} host "
+          "syncs; outputs bit-identical")
+    if syncs[1]:
+        raise AssertionError("fixed rounds: the preprocessing synced")
+    return {"eager_prep_ms": e_ms, "fixed_rounds_prep_ms": f_ms,
+            "eager_prep_host_ms": e_host, "fixed_rounds_prep_host_ms": f_host}
+
+
+def streaming_and_cls_graphs():
+    """The --streaming graph (the searched sizes as the dataset's third
+    array: no search in the step), the same in bf16 (compute and
+    parameters: only the model differs) and the classification graph (M 1000, 40
+    classes, untagged) at full width, each checked and timed
+    (graph_replays). Returns (timings, the replays made)."""
+    cfg = TrainConfig.from_args(["--streaming"])
+    host = make_dataset(C, N, synthetic_length=EXTRAS_CLOUDS, seed=0,
+                        int_labels=True)
+    ds = DeviceCachedDataset(train_cli.precompute_voxel_sizes(host, cfg), "cuda")
+    step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
+    state = create_train_state(C, F, lambda _: TRAIN_LR)
+    steps = EXTRAS_CLOUDS // B
+    scan = make_epoch_scan(step)
+    captured_k1("streaming epoch", lambda: run_epoch_scan(scan, state, ds, B))
+    stream_ms, _, r1 = graph_replays("streaming", scan, state, ds, B)
+    r1 += steps
+    state = create_train_state(C, F, lambda _: TRAIN_LR, **BF16)
+    scan = make_epoch_scan(step)
+    captured_k1("bf16 streaming epoch",
+                lambda: run_epoch_scan(scan, state, ds, B))
+    bf16_ms, _, r = graph_replays("bf16 streaming", scan, state, ds, B)
+    r1 += steps + r
+    del ds, state, scan
+    cfg = TrainConfig.from_args(["--task", "classification", "--n_desired_nds",
+                                 str(CLS_M), "--n_classes", str(CLS_C)])
+    ds = DeviceCachedDataset(train_cli.make_cls_dataset(cfg, "train", 0), "cuda")
+    step, _ = make_classification_step(CLS_M, CLS_C, "probe")
+    state = create_train_state(CLS_C, F, lambda _: TRAIN_LR,
+                               model=NDTNetClassification)
+    scan = make_epoch_scan(step)
+    captured_k1("classification epoch",
+                lambda: run_epoch_scan(scan, state, ds, B))
+    cls_ms, _, r2 = graph_replays("classification", scan, state, ds, B)
+    r2 += len(ds) // B
+    eager_ms, _ = event_ms(lambda: step(state, *(a[:B] for a in ds.arrays)))
+    print(f"classification eager step (same call): {eager_ms:.3f} ms")
+    return {"streaming_graph_step_ms": stream_ms,
+            "bf16_streaming_graph_step_ms": bf16_ms,
+            "cls_graph_step_ms": cls_ms, "cls_eager_step_ms": eager_ms}, r1 + r2
+
+
+def bf16_step_check():
+    """The bf16 segmentation step (compute and parameters bfloat16) on the
+    card against the CPU from the same weights: the loss within
+    BF16_LOSS_RTOL; parameters and Adam's moments bfloat16; where the
+    two gradients agree in sign and are not bf16 noise (>= 5e-2 of the
+    leaf's largest on both; leaves below 1e-3 of the model's largest
+    skipped), the parameters within one bf16 ulp plus 3 % of lr (the CPU
+    tests' rule against JAX)."""
+    step, _ = make_ndt_seg_step(SMALL_M, SMALL_C, "reference")
+    pts, labels = small_batch()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(SMALL_C, SMALL_F, lambda _: TRAIN_LR,
+                                   device=dev, **BF16)
+        state, m = step(state, torch.from_numpy(pts).to(dev),
+                        torch.from_numpy(labels).to(dev))
+        out[dev] = (float(m["loss"]), state)
+    (lg, sg), (lc, sc) = out["cuda"], out["cpu"]
+    if abs(lg - lc) > BF16_LOSS_RTOL * abs(lc):
+        raise AssertionError(f"bf16 small step: loss {lg} card, {lc} CPU")
+    pg, pc = dict(sg.model.named_parameters()), dict(sc.model.named_parameters())
+    gmax = max(float(p.grad.float().abs().max()) for p in pc.values())
+    compared = 0
+    for name, p in pc.items():
+        q = pg[name]
+        if p.dtype != torch.bfloat16 or q.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 small step: {name} is {q.dtype}")
+        g, h = p.grad.float(), q.grad.float().cpu()
+        if float(g.abs().max()) < 1e-3 * gmax:
+            continue
+        keep = ((g.sign() == h.sign()) & (g.abs() >= 5e-2 * g.abs().max())
+                & (h.abs() >= 5e-2 * h.abs().max()))
+        want, got = p.detach().float()[keep], q.detach().float().cpu()[keep]
+        tol = want.abs() * 2.0**-7 + 0.03 * TRAIN_LR
+        if bool(((got - want).abs() > tol).any()):
+            raise AssertionError(f"bf16 small step: {name} differs card vs CPU")
+        compared += int(keep.sum())
+    moments = {v.dtype for s in sg.optimizer.state.values()
+               for k, v in s.items() if k != "step"}
+    if moments != {torch.bfloat16}:
+        raise AssertionError(f"bf16 small step: Adam's moments {moments}")
+    print(f"bf16 small step: card vs CPU loss {lg:.6f} / {lc:.6f} (gap "
+          f"{abs(lg - lc) / abs(lc):.3e}); {compared} parameters compared; "
+          "parameters and moments bfloat16")
+
+
+def bf16_steps():
+    """5 timed full-width bf16 steps (compute and parameters bfloat16) of
+    each trainer's step, with the stage split, host syncs, K1 launches and
+    peak memory (timed_train), parameters checked bfloat16; then 3 timed
+    bf16 serving requests (compute bf16, parameters and preprocessing
+    f32). Returns the median ms of each."""
+    out = {}
+    points, labels = train_batch()
+    ms_points = torch.from_numpy(make_batch(MS_B, N, seed=1)).cuda()
+    ms_labels = labels[:MS_B]
+    pn_pts, pn_labels = pointnet_batch(B, PN_N, seed=3)
+    runs = (
+        ("bf16 segmentation", NDTNetSegmentation, {}, C,
+         make_ndt_seg_step(TRAIN_M, C, "probe")[0], (points, labels), 1,
+         [("preprocessing", TRAIN_M, labels)]),
+        ("bf16 classification", NDTNetClassification, {}, CLS_C,
+         make_classification_step(CLS_M, CLS_C, "probe")[0], cls_batch(), 1,
+         [("preprocessing", CLS_M, None)]),
+        ("bf16 multiscale", NDTNetPPSegmentation,
+         dict(fine_res=MS_FINE, coarse_res=MS_COARSE), C,
+         make_multiscale_seg_step(MS_FINE, MS_COARSE, C, "probe")[0],
+         (ms_points, ms_labels), 2,
+         [("fine prep", MS_FINE, ms_labels),
+          ("coarse prep", MS_COARSE, ms_labels)]),
+        ("bf16 pointnet", PointNetSegmentation, {}, C,
+         make_pointnet_seg_step(C)[0],
+         (torch.from_numpy(pn_pts).cuda(), torch.from_numpy(pn_labels).cuda()),
+         0, []),
+    )
+    for label, model, kw, classes, step, batch, k1, preps in runs:
+        width = MS_F if model is NDTNetPPSegmentation else F
+        state = create_train_state(classes, width, lambda _: TRAIN_LR,
+                                   model=model, **kw, **BF16)
+        out[label], _ = timed_train(label, step, state, batch, k1, preps)
+        dtypes = {t.dtype for t in state.model.state_dict().values()}
+        if dtypes != {torch.bfloat16}:
+            raise AssertionError(f"{label}: parameters {dtypes}")
+        del state
+    pipe = SegmentationPipeline(n_desired=M, num_classes=C, feature_dim=F,
+                                dtype=torch.bfloat16)
+    if {p.dtype for p in pipe.model.parameters()} != {torch.float32}:
+        raise AssertionError("bf16 serving: parameters not float32")
+    requests = [make_batch(B, N, seed=s) for s in (1, 2, 3)]
+    pipe(requests[0])
+    lat = []
+    for i, pts in enumerate(requests):
+        before = sm.fused_moments_sorted.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, mask, st = pipe(pts)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if sm.fused_moments_sorted.launches - before != 1:
+            raise AssertionError(f"bf16 request {i}: K1 launches "
+                                 f"{sm.fused_moments_sorted.launches - before}")
+        if (logits.dtype != torch.bfloat16 or tuple(logits.shape) != (B, M, C + 1)
+                or not bool(torch.isfinite(logits).all())
+                or not bool(st.converged.all())):
+            raise AssertionError(f"bf16 request {i}: bad logits or search")
+        lat.append(ms)
+        print(f"bf16 serve request {i}: {ms:.3f} ms (events)")
+    out["bf16 serving"] = statistics.median(lat)
+    print(f"bf16 serving: median {out['bf16 serving']:.3f} ms/request")
+    return out
+
+
+def adam_modes():
+    """The eager segmentation step's optimizer stage (train_stages) with
+    the plain Adam that an eager step keeps (its rate a number, its
+    counters on the host) and with the capturable one that a graph's state
+    takes (``make_capturable``), in f32 and in bf16, the two forms
+    alternated in this call. Returns the median ms of each."""
+    points, labels = train_batch()
+    step = make_ndt_seg_step(TRAIN_M, C, "probe")[0]
+    out = {}
+    for label, kw in (("f32", {}), ("bf16", BF16)):
+        states = {}
+        for capturable in (True, False):
+            state = create_train_state(C, F, lambda _: TRAIN_LR, **kw)
+            if capturable:
+                make_capturable(state)
+            step(state, points, labels)  # Adam's moments made
+            states[capturable] = state
+        ms = {True: [], False: []}
+        for capturable in (True, False, False, True) * 2:
+            ms[capturable].append(train_stages(
+                step, states[capturable], points, labels,
+                ["preprocessing"])["optimizer"])
+        for capturable, runs in ms.items():
+            out[f"{label}_{'capturable' if capturable else 'plain'}_adam_ms"] = (
+                statistics.median(runs))
+        print(f"{label} eager segmentation step, optimizer stage (median of "
+              f"4): capturable Adam {statistics.median(ms[True]):.3f} ms, "
+              f"plain Adam {statistics.median(ms[False]):.3f} ms")
+        del states
+    return out
+
+
+def extras_phase():
+    """The trainer extras at full width: the graph epochs (segmentation
+    against its per-step epoch, eval, streaming, classification) with no
+    host sync in a replay and K1 once a replay; the sync-free search's
+    cost; peak memory; the bf16 small step card vs CPU, the four bf16
+    steps and bf16 serving; the optimizer stage with capturable and plain
+    Adam; the trainer CLI with --device_cache --compute_dtype bfloat16
+    for an epoch and a resumed one. Returns (K1 launches on this path:
+    its wrapper's count, which holds the eager launches, plus one for each
+    replay of a graph that captured one K1 call (captured_k1, and the
+    profiler saw K1 once a replay: graph_replays); K1's max_abs_err on the
+    graph path's inputs, checked after the count; timings)."""
+    t0 = time.perf_counter()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec, gap, replays, times = seg_graph_epochs()
+    more, r = streaming_and_cls_graphs()
+    times.update(more, graph_vs_eager_param_gap=gap)
+    replays += r
+    times["graph_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"graph phase peak memory {times['graph_peak_gb']:.2f} GB")
+    bf16_step_check()
+    times.update(bf16_steps())
+    times.update(adam_modes())
+    # 2 runs, each capturing a train, a val and a test graph and replaying
+    # each once a batch
+    runs, preps, steps = captured_k1(
+        "bf16 device_cache trainer", lambda: trainer_runs(
+            "bf16 device_cache trainer", train_cli.main,
+            ["--device_cache", "--compute_dtype", "bfloat16",
+             "--synthetic_length", str(EXTRAS_CLOUDS), "--epochs", "1",
+             "--save_every", "1", "--out_path", EXTRAS_OUT], resume=True),
+        graphs=6)
+    if steps != 4:
+        raise AssertionError(f"bf16 device_cache trainer: {steps} steps")
+    replays += 2 * 3 * (EXTRAS_CLOUDS // B)
+    eager = sm.fused_moments_sorted.launches
+    launches = eager + replays
+    print(f"trainer extras: K1 {launches} launches: {eager} eager (counted "
+          f"by its wrapper: per-step epochs, warm-ups, eager and bf16 steps, "
+          f"requests) + {replays} graph replays of one captured K1 call "
+          f"each; phase took {time.perf_counter() - t0:.1f} s")
+    err = rec.check("graph path (warm-up steps)")
+    return launches, err, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1921,14 +2439,16 @@ def main() -> int:
     var_launches, var_err = ndt_variants_phase()
     pn_launches = pointnet_phase()
     carla_launches, carla_err, fps = carla_phase()
+    extras_launches, extras_err, extras_times = extras_phase()
     # K1's launches on the eight main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
     k1["launches"] = (served + giant_launches + train_launches + cls_launches
                       + ms_launches + var_launches + pn_launches
-                      + carla_launches)
+                      + carla_launches + extras_launches)
     k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err,
-                            var_err, carla_err)
+                            var_err, carla_err, extras_err)
+    k1["graph"] = extras_times
     k1["giant"] = giant_times
     k1["train"] = train_times
     k1["multiscale"] = ms_times

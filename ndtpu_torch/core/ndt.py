@@ -14,8 +14,15 @@ What changes against the JAX package:
 - ``vmap`` is an explicit leading batch dimension. Every function takes
   ``[B, N]`` structure-of-arrays tensors and per-cloud ``[B]`` scalars.
 - The batched ``while_loop`` of the searches is a Python loop over rounds.
-  A finished cloud's carry stays frozen, as under ``vmap``; deciding
-  whether any cloud still searches costs one host sync per round.
+  A finished cloud's carry stays frozen, as under ``vmap``. Eagerly, a
+  round gathers the clouds still searching (``torch.nonzero``) and the
+  loop stops when none is left, one host sync per round. Inside
+  ``_fixed_rounds()`` (which ``train/loop.py::make_epoch_scan`` enters
+  for its warm-up steps and its capture), every round evaluates every
+  cloud up to
+  the search's fixed maximum and keeps each finished cloud's carry with
+  ``torch.where``: no host sync, the same outputs bit for bit
+  (``_Rounds``).
 - Voxel keys are int64 ``(z * len_y + y) * len_x + x``. A masked point
   gets ``KEY_PAD`` (2**62), above every valid key, so the sort order
   equals the JAX int32 order (``INT32_MAX`` padding). Inside the (zy, x)
@@ -31,7 +38,9 @@ What changes against the JAX package:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -53,6 +62,61 @@ PROBE_FACTOR = 4  # cold-probe subsample stride
 _GRID_CELL_BUDGET = float(2**31 - 1024)
 KEY_PAD = 2**62
 _BIG_COUNT = 2**31 - 1  # "no fallback size seen yet"
+_fixed = threading.local()  # .depth > 0 inside _fixed_rounds(), per thread
+
+
+@contextlib.contextmanager
+def _fixed_rounds():
+    """Within (on this thread): every voxel-size search runs its fixed
+    maximum of rounds over the whole batch, with no host sync
+    (``_Rounds``)."""
+    _fixed.depth = getattr(_fixed, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _fixed.depth -= 1
+
+
+def _sync_free() -> bool:
+    return getattr(_fixed, "depth", 0) > 0
+
+
+class _Rounds:
+    """Which clouds a search round evaluates, and how its results land.
+
+    Eager: the clouds not yet done, gathered by ``torch.nonzero`` (the
+    round's host sync); ``start`` is False once none is left; results are
+    scattered back into those clouds' rows. Sync-free (``_fixed_rounds()``):
+    every cloud every round, ``take`` returning the
+    carry itself; results land, in new tensors, where the cloud was not
+    done when the round started, by ``torch.where``. Each cloud's
+    arithmetic is the same either way, so the outputs are bit-identical.
+    """
+
+    def __init__(self):
+        self.sync_free = _sync_free()
+        self.sel = slice(None)  # the clouds of the round, for count_fn
+
+    def start(self, done) -> bool:
+        if self.sync_free:
+            self.active = ~done
+            return True
+        self.sel = torch.nonzero(~done).squeeze(-1)  # the round's host sync
+        return self.sel.numel() > 0
+
+    def take(self, *ts):
+        """The round's rows of each [B, ...] tensor."""
+        return ts if self.sync_free else tuple(t[self.sel] for t in ts)
+
+    def merge(self, old, new):
+        """``old`` with the round's rows taken from ``new``: in place
+        eagerly (``take`` gave copies), a new tensor sync-free (``take``
+        gave the carry itself, which the round may still read)."""
+        if self.sync_free:
+            act = self.active.reshape(self.active.shape + (1,) * (new.dim() - 1))
+            return torch.where(act, new, old)
+        old[self.sel] = new
+        return old
 
 
 @dataclasses.dataclass
@@ -237,9 +301,10 @@ def _search_voxel_size(n_desired, mins, maxs, lo_min, count_fn):
     an unconverged cloud keeps the smallest count >= n seen. The lower
     bound is clamped to ``lo_min`` [B], the envelope where counts are
     exact. ``count_fn(idx, size, mins, maxs)`` gives the occupied counts
-    [B'] of the clouds ``idx`` still searching, at their sizes, mins and
-    maxs (``_point_count``, or the point-sharded path's collective
-    count). Returns (voxel_size [B] f32, converged [B] bool)."""
+    [B'] of the clouds ``idx`` evaluated (an index tensor, or a slice of
+    all), at their sizes, mins and maxs (``_point_count``, or the
+    point-sharded path's collective count). Returns (voxel_size [B] f32,
+    converged [B] bool)."""
     b = mins.shape[0]
     upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), mins)
     lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
@@ -249,18 +314,17 @@ def _search_voxel_size(n_desired, mins, maxs, lo_min, count_fn):
     best_g = torch.zeros_like(lo)
     best_c = torch.full((b,), _BIG_COUNT, dtype=torch.int64,
                         device=mins.device)
+    rounds = _Rounds()
     for _ in range(MAX_GUESS_ITERATIONS):
-        idx = torch.nonzero(~done).squeeze(-1)  # the round's host sync
-        if idx.numel() == 0:
+        if not rounds.start(done):
             break
-        g = guess[idx]
-        count = count_fn(idx, g, mins[idx], maxs[idx])
-        hit, l, h, best_g[idx], best_c[idx] = _ingest(
-            g, count, lo[idx], hi[idx], best_g[idx], best_c[idx], n_desired,
-            upper)
-        lo[idx], hi[idx] = l, h
-        guess[idx] = torch.where(hit, g, l + (h - l) / 2.0)
-        done[idx] = hit
+        g, mn, mx, l, h, bg, bc = rounds.take(guess, mins, maxs, lo, hi,
+                                              best_g, best_c)
+        count = count_fn(rounds.sel, g, mn, mx)
+        hit, l, h, bg, bc = _ingest(g, count, l, h, bg, bc, n_desired, upper)
+        lo, hi, best_g, best_c, guess, done = (rounds.merge(*p) for p in (
+            (lo, l), (hi, h), (best_g, bg), (best_c, bc),
+            (guess, torch.where(hit, g, l + (h - l) / 2.0)), (done, hit)))
     have_best = best_c < _BIG_COUNT
     final = torch.where(done, guess, torch.where(have_best, best_g, guess))
     return final, done
@@ -291,20 +355,20 @@ def _search_voxel_size_fast(n_desired, mins, maxs, count_fn, lo_min=None):
                         device=guess.device)
     prev_g = torch.zeros_like(guess)
     prev_c = torch.zeros_like(guess)
+    rounds = _Rounds()
     for _ in range(MAX_GUESS_ITERATIONS):
-        idx = torch.nonzero(~done).squeeze(-1)  # the round's host sync
-        if idx.numel() == 0:
+        if not rounds.start(done):
             break
-        g, pg, pc = guess[idx], prev_g[idx], prev_c[idx]
-        count = count_fn(idx, g, mins[idx], maxs[idx])
+        g, pg, pc, mn, mx, l, h, bg, bc = rounds.take(
+            guess, prev_g, prev_c, mins, maxs, lo, hi, best_g, best_c)
+        count = count_fn(rounds.sel, g, mn, mx)
         cf = count.float()
-        hit, l, h, best_g[idx], best_c[idx] = _ingest(
-            g, count, lo[idx], hi[idx], best_g[idx], best_c[idx], n_desired,
-            upper)
+        hit, l, h, bg, bc = _ingest(g, count, l, h, bg, bc, n_desired, upper)
         nxt = _secant_step(g, cf, pg, pc, l, h, target)
-        lo[idx], hi[idx], done[idx] = l, h, hit
-        prev_g[idx], prev_c[idx] = g, cf
-        guess[idx] = torch.where(hit, g, nxt)
+        best_g, best_c, lo, hi, done, prev_g, prev_c, guess = (
+            rounds.merge(*p) for p in (
+                (best_g, bg), (best_c, bc), (lo, l), (hi, h), (done, hit),
+                (prev_g, g), (prev_c, cf), (guess, torch.where(hit, g, nxt))))
     have_best = best_c < _BIG_COUNT
     final = torch.where(done, guess, torch.where(have_best, best_g, guess))
     return final, done
@@ -362,11 +426,12 @@ def _search_voxel_size_grid(px, py, pz, mask, n_desired, mins, maxs, lo_min,
     gap between the largest too-fine and the smallest too-coarse size.
     An unconverged cloud returns the smallest-count-above-n size seen, else
     its bracket's geometric middle. At most ``max_rounds`` rounds; a
-    finished cloud's carry is frozen, as under ``vmap``; the loop stops
-    early when every cloud is done, which costs one host sync per round
-    (none after the last). The lower bound is clamped to ``lo_min`` [B],
-    the key mode's envelope. Returns (voxel_size [B] f32, converged [B]
-    bool)."""
+    finished cloud's carry is frozen, as under ``vmap``; eagerly the loop
+    stops early when every cloud is done, which costs one host sync per
+    round (none after the last), and sync-free (``_fixed_rounds()``) it
+    runs all ``max_rounds``, with the same outputs. The lower bound is
+    clamped to ``lo_min`` [B], the key mode's envelope. Returns
+    (voxel_size [B] f32, converged [B] bool)."""
     upper = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD), px)
     target = _f32(n_desired * (1.0 + DOWNSAMPLE_UPPER_THRESHOLD / 2.0), px)
     lo = torch.clamp(lo_min, min=MIN_VOXEL_GUESS)
@@ -378,6 +443,7 @@ def _search_voxel_size_grid(px, py, pz, mask, n_desired, mins, maxs, lo_min,
                         device=llo.device)
     fracs = torch.arange(1, g + 1, dtype=torch.float32,
                          device=llo.device) / float(g + 1)
+    sync_free = _sync_free()
     for r in range(max_rounds):
         lsizes = llo[:, None] + (lhi - llo)[:, None] * fracs     # [B, G]
         sizes = torch.exp(lsizes)
@@ -405,7 +471,8 @@ def _search_voxel_size_grid(px, py, pz, mask, n_desired, mins, maxs, lo_min,
         llo = torch.where(active, new_llo, llo)
         lhi = torch.where(active, new_lhi, lhi)
         done = done | hit
-        if r + 1 < max_rounds and bool(done.all()):  # the round's host sync
+        if (r + 1 < max_rounds and not sync_free
+                and bool(done.all())):  # the round's host sync
             break
     mid = torch.exp((llo + lhi) * 0.5)
     final = torch.where(done, acc,
@@ -460,26 +527,25 @@ def _search_and_sort_fast(px, py, pz, mask, classes, n_desired, mins, maxs,
     prev_c = torch.zeros_like(size0)
     countf = count.float()
 
+    rounds = _Rounds()
     for it in range(1, MAX_GUESS_ITERATIONS + 1):
-        idx = torch.nonzero(~accepted).squeeze(-1)  # the round's host sync
-        if idx.numel() == 0:
+        if not rounds.start(accepted):
             break
-        g, l, h = guess[idx], lo[idx], hi[idx]
-        bg, bc, pg, pc, cf = (best_g[idx], best_c[idx], prev_g[idx],
-                              prev_c[idx], countf[idx])
+        g, l, h, bg, bc, pg, pc, cf = rounds.take(
+            guess, lo, hi, best_g, best_c, prev_g, prev_c, countf)
         nxt = _secant_step(g, cf, pg, pc, l, h, target)
         if it >= MAX_GUESS_ITERATIONS:
             nxt = torch.where(bc < _BIG_COUNT, bg, nxt)
-        sub = _sort_payload_at(px[idx], py[idx], pz[idx], mask[idx],
-                               classes[idx], nxt, mins[idx], maxs[idx],
-                               tagged)
+        sub = _sort_payload_at(*rounds.take(px, py, pz, mask, classes), nxt,
+                               *rounds.take(mins, maxs), tagged)
         cnt = _count_runs(sub[0])
         hit, l, h, bg, bc = _ingest(nxt, cnt, l, h, bg, bc, n_desired, upper)
-        accepted[idx], guess[idx], lo[idx], hi[idx] = hit, nxt, l, h
-        best_g[idx], best_c[idx] = bg, bc
-        prev_g[idx], prev_c[idx], countf[idx] = g, cf, cnt.float()
-        for col, new in zip(cols, sub):
-            col[idx] = new
+        accepted, guess, lo, hi, best_g, best_c, prev_g, prev_c, countf = (
+            rounds.merge(*p) for p in (
+                (accepted, hit), (guess, nxt), (lo, l), (hi, h), (best_g, bg),
+                (best_c, bc), (prev_g, g), (prev_c, cf),
+                (countf, cnt.float())))
+        cols = [rounds.merge(c, new) for c, new in zip(cols, sub)]
     return guess, accepted, cols
 
 

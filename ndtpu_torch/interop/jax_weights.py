@@ -51,9 +51,23 @@ from ndtpu_torch.models.pointnet import (
     PointNetSegmentation,
 )
 from ndtpu_torch.models.tnet import TNet
+from ndtpu_torch.train.state import place_adam_steps
+
+
+_HALF = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _copy(dst: torch.Tensor, src):
+    """dst <- the leaf src. A bfloat16 or float16 leaf fills only a tensor
+    of its own type, and such a tensor takes only a leaf of its type, so
+    no value is widened or rounded on the way: bfloat16 parameters and
+    Adam moments come from bfloat16 leaves, float32 ones from float32
+    leaves."""
+    src = np.asarray(src)
+    half = _HALF.get(src.dtype.name)
+    if (half or torch.float32) != dst.dtype and (
+            half is not None or dst.dtype in _HALF.values()):
+        raise TypeError(f"a {src.dtype.name} leaf for a {dst.dtype} tensor")
     src = torch.from_numpy(np.array(src, dtype=np.float32))
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(src.shape)} != {tuple(dst.shape)}")
@@ -156,8 +170,10 @@ def load_jax_train_state(state, jax_state):
     fields): params and batch_stats as ``load_jax_variables``; the opt
     state ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``
     as Adam's ``exp_avg`` (mu) and ``exp_avg_sq`` (nu), Dense kernels
-    transposed like the weights, and each parameter's ``step`` (count);
-    the step itself. Returns the state."""
+    transposed like the weights, and each parameter's ``step`` (count),
+    placed where the state's optimizer reads it (``place_adam_steps``);
+    the step itself. bfloat16 parameters take the bfloat16 moments of a
+    bfloat16 JAX state as they are. Returns the state."""
     model, opt = state.model, state.optimizer
     load_jax_variables(model, {"params": _field(jax_state, "params"),
                                "batch_stats": _field(jax_state, "batch_stats")})
@@ -173,4 +189,5 @@ def load_jax_train_state(state, jax_state):
             opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
                             "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
     state.step = int(np.asarray(_field(jax_state, "step")))
+    place_adam_steps(state)
     return state

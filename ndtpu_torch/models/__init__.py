@@ -1,5 +1,6 @@
-"""Model families of the port (channels-last [B, N, C], ``nn.Linear`` for
+"""Model families of the port (channels-last [B, N, C], ``Dense`` layers for
 the reference's pointwise convolutions)."""
+from ndtpu_torch.models.dense import Dense  # noqa: F401
 from ndtpu_torch.models.ndtnet import (  # noqa: F401
     AdditionalFeatures,
     NDTNet,

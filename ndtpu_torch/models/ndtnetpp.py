@@ -11,7 +11,10 @@ feature_dim (the JAX package's completion of the reference's shape bug).
 One module serves both branches: in train mode its BatchNorms move their
 running statistics twice a forward, branch 1 first, as in flax. Attribute
 names follow the reference modules (ndtnet1, ndtnet2, residual, ndnet,
-feature_extractor, conv*, bn*).
+feature_extractor, conv*, bn*). ``dtype`` and ``param_dtype`` as in
+NDTNet: the pruned fine state goes into ``ndtnet2`` cast to ``dtype``
+(ndtnetpp.py:84-85), and branch 2's zero feature block is made in it
+(:94-96).
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ from ndtpu_torch.models.ndtnet import (
     AdditionalFeatures,
     NDTNet,
     classification_head,
+    classification_head_layers,
+    segmentation_head_layers,
 )
-from ndtpu_torch.models.norm import BatchNorm
+from ndtpu_torch.models.dense import layers
 from ndtpu_torch.utils.device import resolve_device
 
 
@@ -33,10 +38,12 @@ class ResidualConnection(nn.Module):
     axis, then BatchNorm of each output point row over (B, F), then ReLU
     (ndtnetpp.py:8-41)."""
 
-    def __init__(self, in_points: int, out_points: int):
+    def __init__(self, in_points: int, out_points: int, dtype=None,
+                 param_dtype=torch.float32):
         super().__init__()
-        self.conv1 = nn.Linear(in_points, out_points)
-        self.bn1 = BatchNorm(out_points)
+        dense, norm = layers(dtype, param_dtype)
+        self.conv1 = dense(in_points, out_points)
+        self.bn1 = norm(out_points)
 
     def forward(self, x):
         h = torch.relu(self.bn1(self.conv1(x.transpose(1, 2))))
@@ -50,44 +57,54 @@ class NDTNetPP(nn.Module):
     feat1 [B, N1, F]), N1 = fine_res, N2 = coarse_res."""
 
     def __init__(self, point_dim: int = 3, fine_res: int = 8160,
-                 coarse_res: int = 4080, feature_dim: int = 1024):
+                 coarse_res: int = 4080, feature_dim: int = 1024, dtype=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.coarse_res = coarse_res
         self.feature_dim = feature_dim
+        self.dtype = dtype
+        dense, norm = layers(dtype, param_dtype)
         self.ndtnet1 = NDTNet(point_dim, feature_dim,
-                              AdditionalFeatures.COVARIANCES)
+                              AdditionalFeatures.COVARIANCES, dtype=dtype,
+                              param_dtype=param_dtype)
         self.ndtnet2 = NDTNet(point_dim, feature_dim,
                               AdditionalFeatures.FEATURE_VECTOR,
-                              extra_dim=feature_dim)
-        self.residual = ResidualConnection(fine_res, coarse_res)
-        self.conv1 = nn.Linear(feature_dim, feature_dim)
-        self.bn1 = BatchNorm(feature_dim)
+                              extra_dim=feature_dim, dtype=dtype,
+                              param_dtype=param_dtype)
+        self.residual = ResidualConnection(fine_res, coarse_res, dtype,
+                                           param_dtype)
+        self.conv1 = dense(feature_dim, feature_dim)
+        self.bn1 = norm(feature_dim)
 
     def forward(self, points1, covariances1, state1: NDTResult, points2,
                 covariances2):
         feat1, _ = self.ndtnet1(points1, covariances1)
         with torch.no_grad():
             down1, downcov1, _, _ = ndt_prune(state1, self.coarse_res)
+        if self.dtype is not None:
+            down1, downcov1 = down1.to(self.dtype), downcov1.to(self.dtype)
         feat1_, _ = self.ndtnet2(down1, downcov1, self.residual(feat1))
-        zeros = points2.new_zeros(points2.shape[:2] + (self.feature_dim,))
+        zeros = points2.new_zeros(points2.shape[:2] + (self.feature_dim,),
+                                  dtype=self.dtype or points2.dtype)
         feat2, _ = self.ndtnet2(points2, covariances2, zeros)
         return self.bn1(self.conv1(feat1_ + feat2)), feat1
 
 
 class NDTNetPPClassification(nn.Module):
     """ndtnetpp.py:136-178: [B, num_classes] probabilities, or logits with
-    ``return_logits=True``. Built on ``device`` (the card by default)."""
+    ``return_logits=True``. Built on ``device`` (the card by default), in
+    ``dtype`` and ``param_dtype``."""
 
     def __init__(self, point_dim: int = 3, num_classes: int = 512,
                  fine_res: int = 8160, coarse_res: int = 4080,
-                 feature_dim: int = 1024, device="cuda"):
+                 feature_dim: int = 1024, device="cuda", dtype=None,
+                 param_dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.feature_extractor = NDTNetPP(point_dim, fine_res, coarse_res,
-                                          feature_dim)
-        self.conv1 = nn.Linear(feature_dim, 512)
-        self.conv2 = nn.Linear(512, 256)
-        self.conv3 = nn.Linear(256, num_classes)
+                                          feature_dim, dtype, param_dtype)
+        classification_head_layers(self, feature_dim, num_classes, dtype,
+                                   param_dtype)
         self.to(dev)
 
     def forward(self, points1, covariances1, state1, points2, covariances2,
@@ -102,22 +119,20 @@ class NDTNetPPSegmentation(nn.Module):
     softmax, ndtnetpp.py:236, not the log-softmax of NDTNetSegmentation),
     or logits with ``return_logits=True``. The coarse features are mapped
     back to the fine rows and added to branch 1's. Built on ``device``
-    (the card by default)."""
+    (the card by default), in ``dtype`` and ``param_dtype``."""
 
     def __init__(self, point_dim: int = 3, num_classes: int = 16,
                  fine_res: int = 8160, coarse_res: int = 4080,
-                 feature_dim: int = 1024, device="cuda"):
+                 feature_dim: int = 1024, device="cuda", dtype=None,
+                 param_dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
-        self.ndnet = NDTNetPP(point_dim, fine_res, coarse_res, feature_dim)
-        self.residual = ResidualConnection(coarse_res, fine_res)
-        self.conv1 = nn.Linear(feature_dim, 512)
-        self.conv2 = nn.Linear(512, 256)
-        self.conv3 = nn.Linear(256, 128)
-        self.conv4 = nn.Linear(128, num_classes + 1)
-        self.bn1 = BatchNorm(512)
-        self.bn2 = BatchNorm(256)
-        self.bn3 = BatchNorm(128)
+        self.ndnet = NDTNetPP(point_dim, fine_res, coarse_res, feature_dim,
+                              dtype, param_dtype)
+        self.residual = ResidualConnection(coarse_res, fine_res, dtype,
+                                           param_dtype)
+        segmentation_head_layers(self, feature_dim, num_classes, dtype,
+                                 param_dtype)
         self.to(dev)
 
     def forward(self, points1, covariances1, state1, points2, covariances2,

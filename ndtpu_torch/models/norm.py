@@ -12,6 +12,14 @@ Both modes compute the JAX module's expressions on channels-last input:
   statistics updated without a gradient as ``0.9 * running + 0.1 *
   batch`` with the unbiased variance ``var * n / max(n - 1, 1)``.
 
+The types follow the JAX module too: the statistics and the normalisation
+are computed in ``promote_types(x.dtype, float32)`` (float32 for a
+bfloat16 input, norm.py:46), only the output is cast to ``dtype`` (None
+leaves it in the promoted type of the statistics and the parameters); the
+weight, bias and running statistics are held in ``param_dtype``, and the
+running statistics are updated in the statistics' type and then cast to
+it (norm.py:69-76).
+
 ``F.batch_norm`` is not used: it rounds differently, and the port is held
 to the JAX module's arithmetic.
 """
@@ -27,27 +35,36 @@ class BatchNorm(nn.Module):
     """BatchNorm on [..., C]. Parameters and buffers carry
     ``nn.BatchNorm1d``'s names (weight, bias, running_mean, running_var)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: torch.dtype | None = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(num_features, dtype=param_dtype))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, dtype=param_dtype))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, dtype=param_dtype))
 
     def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.maximum((x - mean).square().mean(axes),
+            mean = xf.mean(axes)
+            var = torch.maximum((xf - mean).square().mean(axes),
                                 torch.zeros_like(mean))
             with torch.no_grad():
                 n = x.numel() // x.shape[-1]
                 unbiased = var * (n / max(n - 1, 1))
-                m = MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased)
-        y = (x - mean) / torch.sqrt(var + self.eps)
-        return y * self.weight + self.bias
+                m, pdt = MOMENTUM, self.running_mean.dtype
+                self.running_mean.copy_(
+                    (m * self.running_mean + (1.0 - m) * mean).to(pdt))
+                self.running_var.copy_(
+                    (m * self.running_var + (1.0 - m) * unbiased).to(pdt))
+        y = (xf - mean) / torch.sqrt(var + self.eps)
+        y = y * self.weight + self.bias
+        return y if self.dtype is None else y.to(self.dtype)

@@ -2,32 +2,37 @@
 
 Three pointwise layers (64, 128, 1024) with BN + ReLU, a max-pool over the
 points, FCs 512 -> 256 -> in_dim**2, plus the identity. Channels-last: the
-reference's 1x1 convolutions are ``nn.Linear`` on [B, N, C]. Attribute
-names follow the reference module (conv1..3, fc1..3, bn1..5).
+reference's 1x1 convolutions are ``Dense`` layers on [B, N, C]. Attribute
+names follow the reference module (conv1..3, fc1..3, bn1..5). ``dtype``
+is the compute type of every layer (None: the inputs' and parameters'),
+``param_dtype`` the parameters' type; the identity is added in the
+output's type (tnet.py:38).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ndtpu_torch.models.norm import BatchNorm
+from ndtpu_torch.models.dense import layers
 
 
 class TNet(nn.Module):
-    def __init__(self, in_dim: int = 64):
+    def __init__(self, in_dim: int = 64, dtype=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.in_dim = in_dim
-        self.conv1 = nn.Linear(in_dim, 64)
-        self.conv2 = nn.Linear(64, 128)
-        self.conv3 = nn.Linear(128, 1024)
-        self.fc1 = nn.Linear(1024, 512)
-        self.fc2 = nn.Linear(512, 256)
-        self.fc3 = nn.Linear(256, in_dim * in_dim)
-        self.bn1 = BatchNorm(64)
-        self.bn2 = BatchNorm(128)
-        self.bn3 = BatchNorm(1024)
-        self.bn4 = BatchNorm(512)
-        self.bn5 = BatchNorm(256)
+        dense, norm = layers(dtype, param_dtype)
+        self.conv1 = dense(in_dim, 64)
+        self.conv2 = dense(64, 128)
+        self.conv3 = dense(128, 1024)
+        self.fc1 = dense(1024, 512)
+        self.fc2 = dense(512, 256)
+        self.fc3 = dense(256, in_dim * in_dim)
+        self.bn1 = norm(64)
+        self.bn2 = norm(128)
+        self.bn3 = norm(1024)
+        self.bn4 = norm(512)
+        self.bn5 = norm(256)
 
     def forward(self, x):
         """x: [B, N, in_dim] -> transform [B, in_dim, in_dim]."""

@@ -14,8 +14,10 @@ how each is laid out and what bounds it on an H100. All three stream
 chunks of points through shared memory; ``range_plan`` and ``sum_plan``
 mirror how the source sizes their launch. Each wrapper checks its inputs,
 launches its kernel on the current stream for CUDA tensors (counting the
-launch in its ``launches`` attribute) and runs its plain version only for
-CPU tensors.
+launch in its ``launches`` attribute) and runs its plain version only
+for CPU tensors. K1's wrapper counts a call captured into a CUDA graph,
+which launches nothing, in ``captured`` instead: each replay of that
+graph launches the kernel without calling the wrapper.
 """
 from __future__ import annotations
 
@@ -269,6 +271,9 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
     if n * batch * num_segments == 0:  # nothing to sum: no launch
         return torch.zeros(shape, dtype=torch.float32, device=seg_ids.device)
     out = torch.empty(shape, dtype=torch.float32, device=seg_ids.device)
+    # Under CUDA graph capture (train/loop.py::make_epoch_scan) these
+    # pointers are copied into the captured launch: every replay reads the
+    # same addresses, which the graph's private memory pool keeps for it.
     tag_ptrs = (ctypes.c_void_p * max(1, len(tags)))(
         *[t.data_ptr() for t in tags]
     )
@@ -279,7 +284,10 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
         len(tags), batch, n, num_segments, slots, out.data_ptr(), stream,
     )
     _raise_on(err, "segment_moments")
-    fused_moments_sorted.launches += 1
+    if torch.cuda.is_current_stream_capturing():  # each replay launches it
+        fused_moments_sorted.captured += 1
+    else:
+        fused_moments_sorted.launches += 1
     return out
 
 
@@ -324,6 +332,7 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
 
 
 fused_moments_sorted.launches = 0
+fused_moments_sorted.captured = 0
 
 
 def _device_of(seg_ids):

@@ -33,26 +33,30 @@ class SegmentationPipeline:
     """Preprocess a batch of clouds to ``n_desired`` NDs, then segment.
 
     ``search`` is the voxel-size search of ndt_downsample ("probe" is the
-    serving default). Weights are random from ``seed``; load trained ones
-    with ``ndtpu_torch.interop.jax_weights.load_jax_variables(
-    pipeline.model, variables)``.
+    serving default). ``dtype`` is the model's compute type (bench.py's
+    ``build_pipeline(dtype=...)``: bfloat16 runs the model's matmuls on the
+    tensor cores); the parameters and the NDT preprocessing stay float32.
+    Weights are random from ``seed``; load trained ones with
+    ``ndtpu_torch.interop.jax_weights.load_jax_variables(pipeline.model,
+    variables)``.
     """
 
     def __init__(self, n_desired: int = 1000, num_classes: int = 28,
                  feature_dim: int = 768, search: str = "probe",
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, dtype=torch.float32):
         self.device = resolve_device(device)
         self.n_desired = n_desired
         self.num_classes = num_classes
         self.search = search
         model = NDTNetSegmentation(num_classes=num_classes,
-                                   feature_dim=feature_dim, device=self.device)
+                                   feature_dim=feature_dim, device=self.device,
+                                   dtype=dtype)
         self.model = init_random_(model, seed).eval()
 
     @torch.no_grad()
     def __call__(self, points):
-        """points [B, N, 3] -> (logits [B, n_desired, num_classes + 1],
-        out_mask [B, n_desired], NDTResult)."""
+        """points [B, N, 3] -> (logits [B, n_desired, num_classes + 1] in
+        the compute type, out_mask [B, n_desired], NDTResult)."""
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
         pcl, covs, _, mask, state = ndt_preprocessing_with_state(

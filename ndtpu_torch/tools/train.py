@@ -22,6 +22,14 @@ continues from one), and a last eval runs the test split. Metrics stay
 device scalars summed over the epoch and are read once at its end.
 ``--streaming`` (segmentation only) searches each sample's voxel size
 once up front and trains with the sizes fixed.
+
+``--compute_dtype`` / ``--param_dtype`` (float32, bfloat16, float16) set
+the model's types; the preprocessing stays float32. ``--device_cache``
+uploads each split to the device once (``DeviceCachedDataset``; with
+``--streaming`` the searched sizes are its third array) and gathers the
+batches there; with ``--epoch_scan`` (the default) each epoch is
+``make_epoch_scan``'s: on the card a CUDA graph of the step, replayed
+once a step, with no host sync inside the epoch.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 
 from ndtpu_torch.data.loader import (
     CachedDataset,
+    DeviceCachedDataset,
     batch_iterator,
     prefetch_to_device,
 )
@@ -46,8 +55,10 @@ from ndtpu_torch.tools._common import make_dataset
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import (
     make_classification_step,
+    make_epoch_scan,
     make_lr_schedule,
     make_ndt_seg_step,
+    run_epoch_scan,
 )
 from ndtpu_torch.train.metrics import MetricLogger
 from ndtpu_torch.train.state import (
@@ -170,7 +181,11 @@ def main(argv=None):
                               int_labels=cfg.int_labels)
         if cfg.streaming:
             ds = precompute_voxel_sizes(ds, cfg)
-        sets.append(CachedDataset(ds) if cfg.cache_dataset else ds)
+        if cfg.device_cache:
+            ds = DeviceCachedDataset(ds, cfg.device)
+        elif cfg.cache_dataset:
+            ds = CachedDataset(ds)
+        sets.append(ds)
     train_set, val_set, test_set = sets
 
     schedule = make_lr_schedule(cfg.learning_rate,
@@ -180,56 +195,94 @@ def main(argv=None):
                         if classify else
                         (NDTNetSegmentation, make_ndt_seg_step))
     state = create_train_state(cfg.n_classes, cfg.feature_dim, schedule,
-                               seed=cfg.seed, device=cfg.device, model=model)
+                               seed=cfg.seed, device=cfg.device, model=model,
+                               **cfg.dtypes)
     step_fn, eval_fn = make_step(cfg.n_desired_nds, cfg.n_classes, cfg.search)
-    return fit(cfg, state, step_fn, eval_fn, train_set, val_set, test_set,
-               "ndtnet")
+    if cfg.device_cache and cfg.epoch_scan:
+        epochs = scan_epochs(cfg, step_fn, eval_fn, train_set)
+    else:
+        epochs = per_step_epochs(cfg, step_fn, eval_fn, train_set)
+    return fit(cfg, state, *epochs, val_set, test_set, "ndtnet",
+               len(train_set) // cfg.batch_size)
 
 
-def fit(cfg, state, step_fn, eval_fn, train_set, val_set, test_set, prefix):
+def per_step_epochs(cfg, step_fn, eval_fn, train_set):
+    """(train_epoch(state, seed), eval_epoch(state, dataset)) of the
+    per-step loop (``run_epoch``) over batches from host memory
+    (``batch_iterator`` + ``prefetch_to_device``) or, for a
+    ``DeviceCachedDataset``, gathered on the device (its ``loader``)."""
+    def loader(dataset, shuffle, seed=0):
+        if isinstance(dataset, DeviceCachedDataset):
+            return dataset.loader(cfg.batch_size, shuffle=shuffle, seed=seed)
+        return prefetch_to_device(
+            batch_iterator(dataset, cfg.batch_size, shuffle=shuffle, seed=seed),
+            cfg.device)
+
+    def train_epoch(state, seed):
+        return run_epoch(step_fn, state, loader(train_set, True, seed), True)
+
+    def eval_epoch(state, dataset):
+        return run_epoch(eval_fn, state, loader(dataset, False), False)[1]
+
+    return train_epoch, eval_epoch
+
+
+def scan_epochs(cfg, step_fn, eval_fn, train_set):
+    """(train_epoch, eval_epoch) as ``per_step_epochs`` gives them, each
+    epoch a ``make_epoch_scan`` epoch over ``DeviceCachedDataset``s (a CUDA
+    graph of the step on the card)."""
+    train_scan = make_epoch_scan(step_fn, train=True)
+    eval_scan = make_epoch_scan(eval_fn, train=False)
+
+    def train_epoch(state, seed):
+        return run_epoch_scan(train_scan, state, train_set, cfg.batch_size,
+                              shuffle=True, seed=seed)
+
+    def eval_epoch(state, dataset):
+        return run_epoch_scan(eval_scan, state, dataset, cfg.batch_size,
+                              shuffle=False)[1]
+
+    return train_epoch, eval_epoch
+
+
+def fit(cfg, state, train_epoch, eval_epoch, val_set, test_set, prefix,
+        steps_per_epoch):
     """The epochs of a trainer: resume from ``cfg.resume`` if given; each
-    epoch train, log, evaluate val, log, and every ``save_every`` epochs
-    save ``<out_path>/<time>/<prefix>_<task>_<epoch>``; then evaluate the
-    test split unless it is None. Returns the final state."""
+    epoch train (``train_epoch(state, epoch)``, shuffled by the epoch's
+    seed), log, evaluate val (``eval_epoch(state, val_set)``), log, and
+    every ``save_every`` epochs save
+    ``<out_path>/<time>/<prefix>_<task>_<epoch>``; then evaluate the test
+    split unless it is None. Returns the final state."""
     if cfg.resume:
         state = restore_checkpoint(state, cfg.resume)
         print(f"resumed from {cfg.resume} at step {state.step}")
     out_dir = os.path.join(
         cfg.out_path, datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
-    steps_per_epoch = max(1, len(train_set) // cfg.batch_size)
     logger = MetricLogger(
         use_wandb=cfg.wandb, project=cfg.wandb_project,
         run_name=f"{cfg.task}_{datetime.datetime.now():%Y%m%d_%H%M%S}",
         config=vars(cfg),
     )
 
-    def loader(dataset, shuffle, seed=0):
-        return prefetch_to_device(
-            batch_iterator(dataset, cfg.batch_size, shuffle=shuffle, seed=seed),
-            cfg.device)
-
-    def eval_epoch(dataset):
-        return run_epoch(eval_fn, state, loader(dataset, False), train=False)[1]
-
     for epoch in range(cfg.epochs):
         t_ep = time.perf_counter()
-        state, m = run_epoch(step_fn, state, loader(train_set, True, epoch),
-                             train=True)
+        state, m = train_epoch(state, epoch)
         ep_s = time.perf_counter() - t_ep
         clouds = steps_per_epoch * cfg.batch_size
         logger.log({**{f"train_{k}": v for k, v in m.items()},
                     "epoch_seconds": round(ep_s, 3),
                     "clouds_per_s": round(clouds / max(ep_s, 1e-9), 2)},
                    step=epoch + 1)
-        logger.log({f"val_{k}": v for k, v in eval_epoch(val_set).items()},
-                   step=epoch + 1)
+        logger.log({f"val_{k}": v for k, v in
+                    eval_epoch(state, val_set).items()}, step=epoch + 1)
         if (epoch + 1) % cfg.save_every == 0:
             path = save_checkpoint(state, os.path.join(
                 out_dir, f"{prefix}_{cfg.task}_{epoch + 1}"))
             print(f"saved checkpoint to {path}")
 
     if test_set is not None:
-        logger.log({f"test_{k}": v for k, v in eval_epoch(test_set).items()})
+        logger.log({f"test_{k}": v for k, v in
+                    eval_epoch(state, test_set).items()})
     logger.finish()
     print("Done.")
     return state

@@ -16,6 +16,9 @@ pass and a val pass, a checkpoint ``ndtnetpp_<task>_<epoch>`` every
 ``save_every`` epochs, ``--resume <dir>`` to continue; there is no test
 split, as in the JAX trainer. Only the segmentation task has a multiscale
 trainer, and each step searches both voxel sizes (no ``--streaming``).
+``--compute_dtype`` / ``--param_dtype`` set the model's types.
+``--device_cache`` is refused: the JAX trainer accepts and ignores it,
+and the port ignores no flag.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import sys
 from ndtpu_torch.data.loader import CachedDataset
 from ndtpu_torch.models.ndtnetpp import NDTNetPPSegmentation
 from ndtpu_torch.tools._common import make_dataset
-from ndtpu_torch.tools.train import fit
+from ndtpu_torch.tools.train import fit, per_step_epochs
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import make_lr_schedule, make_multiscale_seg_step
 from ndtpu_torch.train.state import create_train_state
@@ -39,6 +42,9 @@ def main(argv=None):
     if cfg.streaming:
         raise SystemExit("--streaming: the multiscale step searches both "
                          "voxel sizes")
+    if cfg.device_cache:
+        raise SystemExit("--device_cache: the multiscale trainer reads its "
+                         "batches from host memory")
     fine, coarse = cfg.n_desired_nds, cfg.n_desired_nds1
     sets = []
     for seed, path in enumerate((cfg.train_path, cfg.val_path)):
@@ -53,11 +59,11 @@ def main(argv=None):
     state = create_train_state(cfg.n_classes, cfg.feature_dim, schedule,
                                seed=cfg.seed, device=cfg.device,
                                model=NDTNetPPSegmentation, fine_res=fine,
-                               coarse_res=coarse)
+                               coarse_res=coarse, **cfg.dtypes)
     step_fn, eval_fn = make_multiscale_seg_step(fine, coarse, cfg.n_classes,
                                                 cfg.search)
-    return fit(cfg, state, step_fn, eval_fn, train_set, val_set, None,
-               "ndtnetpp")
+    return fit(cfg, state, *per_step_epochs(cfg, step_fn, eval_fn, train_set),
+               val_set, None, "ndtnetpp", len(train_set) // cfg.batch_size)
 
 
 if __name__ == "__main__":

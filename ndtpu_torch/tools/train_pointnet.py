@@ -15,7 +15,9 @@ synthetic set for a split without a path. Each epoch a train and a val
 pass, a checkpoint ``pointnet_<task>_<epoch>`` every ``save_every``
 epochs, ``--resume <dir>`` to continue; a last eval runs the test split.
 The samples are not cached (as in the JAX trainer): a CARLA split draws
-new points every epoch.
+new points every epoch. ``--compute_dtype`` / ``--param_dtype`` set the
+model's types. ``--device_cache`` is refused: the JAX trainer accepts
+and ignores it, and the port ignores no flag.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import sys
 
 from ndtpu_torch.models.pointnet import PointNetSegmentation
 from ndtpu_torch.tools._common import make_dataset
-from ndtpu_torch.tools.train import fit
+from ndtpu_torch.tools.train import fit, per_step_epochs
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import make_lr_schedule, make_pointnet_seg_step
 from ndtpu_torch.train.state import create_train_state
@@ -36,6 +38,9 @@ def main(argv=None):
         raise SystemExit("train_pointnet trains the segmentation task only")
     if cfg.streaming:
         raise SystemExit("--streaming: the PointNet step has no voxel search")
+    if cfg.device_cache:
+        raise SystemExit("--device_cache: the PointNet trainer reads its "
+                         "batches from host memory")
     train_set, val_set, test_set = (
         make_dataset(cfg.n_classes, cfg.n_samples, path,
                      synthetic_length=cfg.synthetic_length, seed=seed,
@@ -47,10 +52,10 @@ def main(argv=None):
                                 cfg.lr_decay_epochs, cfg.lr_decay_rate)
     state = create_train_state(cfg.n_classes, cfg.feature_dim, schedule,
                                seed=cfg.seed, device=cfg.device,
-                               model=PointNetSegmentation)
+                               model=PointNetSegmentation, **cfg.dtypes)
     step_fn, eval_fn = make_pointnet_seg_step(cfg.n_classes)
-    return fit(cfg, state, step_fn, eval_fn, train_set, val_set, test_set,
-               "pointnet")
+    return fit(cfg, state, *per_step_epochs(cfg, step_fn, eval_fn, train_set),
+               val_set, test_set, "pointnet", len(train_set) // cfg.batch_size)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,10 @@ bools, default overrides for another trainer's defaults), plus
 
 A flag the port cannot honour yet makes ``validate()`` raise with the
 title of the ROADMAP item that will port it; none is ignored quietly.
+``--compute_dtype`` / ``--param_dtype`` take float32, bfloat16 or
+float16; ``--device_cache`` keeps each split on the device and, with
+``--epoch_scan`` (the default), runs each epoch as a CUDA graph of its
+step (``train/loop.py::make_epoch_scan``).
 ``steps_per_epoch`` is read by no trainer, here or in the JAX package
 (the trainers derive it from the dataset).
 """
@@ -13,7 +17,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from ndtpu_torch.utils.device import resolve_device
+
+
+# the floating types that both jnp.dtype and torch name, by jnp.dtype's names
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def resolve_dtype(name: str, flag: str = "dtype") -> torch.dtype:
+    """The torch type of a ``--compute_dtype`` / ``--param_dtype`` name;
+    ValueError for any other name."""
+    if name not in DTYPES:
+        raise ValueError(f"{flag} must be one of {', '.join(DTYPES)}, "
+                         f"got {name!r}")
+    return DTYPES[name]
 
 
 @dataclasses.dataclass
@@ -72,16 +92,12 @@ class TrainConfig:
             raise ValueError(
                 f"--search must be fast|probe|reference|grid, got {self.search!r}"
             )
+        for flag in ("compute_dtype", "param_dtype"):
+            resolve_dtype(getattr(self, flag), f"--{flag}")
         waits = [
             (self.use_pallas != "auto",
              "--use_pallas: the tensors' device picks the route (the CUDA "
              "kernel on the card); only 'auto' is accepted"),
-            ((self.compute_dtype, self.param_dtype) != ("float32", "float32"),
-             "--compute_dtype/--param_dtype other than float32 wait for the "
-             "ROADMAP item \"Trainer extras\""),
-            (self.device_cache,
-             "--device_cache (with --epoch_scan) waits for the ROADMAP item "
-             "\"Trainer extras\" (DeviceCachedDataset, make_epoch_scan)"),
             (self.num_processes > 1 or self.coordinator is not None
              or self.data_axis != "data",
              "multi-process / mesh flags wait for the ROADMAP item "
@@ -92,6 +108,13 @@ class TrainConfig:
                 raise NotImplementedError(why)
         resolve_device(self.device)
         return self
+
+    @property
+    def dtypes(self) -> dict:
+        """The model's ``dtype`` and ``param_dtype`` keywords, as torch
+        types."""
+        return {"dtype": resolve_dtype(self.compute_dtype),
+                "param_dtype": resolve_dtype(self.param_dtype)}
 
     @classmethod
     def from_args(cls, argv=None, **default_overrides):

@@ -10,14 +10,24 @@ cross-entropy from logits (over the kept NDs for segmentation), the
 backward, and one Adam update at the schedule's rate (the PointNet step
 has no preprocessing: the model takes the points). Metrics come back as
 device scalars: nothing in the step after the preprocessing waits for the
-card.
+card, and inside ``core.ndt._fixed_rounds()`` the preprocessing does not
+either, so a step can be captured into a CUDA graph as it is.
+
+``make_epoch_scan`` / ``run_epoch_scan`` are the port of the JAX
+package's one-program epoch (a ``lax.scan`` over the steps, each gathering
+its batch from the device-resident dataset): on the card, a CUDA graph of
+one step replayed once a step; on the CPU, the same sync-free loop
+without a graph.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ndtpu_torch.core.ndt import _fixed_rounds
+from ndtpu_torch.data.loader import epoch_order, to_device
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
+from ndtpu_torch.train.state import make_capturable
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int,
@@ -202,3 +212,161 @@ def make_pointnet_seg_step(n_classes: int | None = None):
                     "accuracy": accuracy(logits, onehot)}
 
     return step, eval_step
+
+
+# eager steps on a side stream before a capture: lazy initialisation
+# (Adam's moments, cuBLAS's workspace) must not happen inside the graph
+WARMUP_STEPS = 3
+
+
+def _snapshot(state):
+    """The train state's values: the step, the model's parameters and
+    buffers, the optimizer's per-parameter state (None where it has
+    none yet)."""
+    with torch.no_grad():
+        return (state.step,
+                [t.detach().clone() for t in state.model.state_dict().values()],
+                {p: {k: v.clone() for k, v in s.items()}
+                 for p, s in state.optimizer.state.items()})
+
+
+def _restore(state, snap):
+    """Write ``_snapshot``'s values back in place (the tensors a graph
+    holds keep their addresses); optimizer state made since is reset to
+    the fresh one's values (zero moments, step 0)."""
+    step, tensors, opt = snap
+    state.step = step
+    with torch.no_grad():
+        for t, v in zip(state.model.state_dict().values(), tensors):
+            t.copy_(v)
+        for p, s in state.optimizer.state.items():
+            before = opt.get(p)
+            for k, v in s.items():
+                if before:
+                    v.copy_(before[k])
+                else:
+                    v.zero_()
+
+
+class _Graph:
+    """One captured step: its static index buffer, the metrics of the last
+    replay and their sums since ``zero``."""
+
+    def __init__(self, graph, idx, last, total):
+        self.graph, self.idx, self.last, self.total = graph, idx, last, total
+
+
+class EpochScan:
+    """``make_epoch_scan``'s epoch: ``epoch(state, order, *arrays) ->
+    (state, mean_metrics, last_metrics)`` for ``order`` [steps, B] int64
+    dataset rows on the arrays' device; metrics are device scalars.
+
+    Each step gathers its batch with ``index_select`` from the dataset's
+    device arrays and runs ``step_fn`` inside ``_fixed_rounds()``, so
+    nothing in it waits for the host. On the CPU that is a plain loop over
+    the steps. On the card the first epoch of a (state, arrays, B) makes a
+    train state's Adam capturable (``make_capturable``), warms up with
+    WARMUP_STEPS steps on a side stream (a train state is restored to its
+    values before them) and captures one step into a CUDA graph
+    (``torch.cuda.graph``, global capture mode) with a static index
+    buffer; then each step is a device copy of its order row into that
+    buffer, a fill of the step's rate (train) and one replay, which also
+    adds the step's metrics to sums that live in the graph. A capture
+    that fails raises. The graph holds the state's tensors by address: the
+    state must not be replaced (restore a checkpoint before the first
+    epoch). A kernel wrapper counts no launch at the capture, which
+    launches nothing; a replay launches the captured kernels without
+    calling their wrappers."""
+
+    def __init__(self, step_fn, train: bool):
+        self.step_fn, self.train = step_fn, train
+        self.graphs = {}
+
+    def run_step(self, state, idx, arrays):
+        batch = tuple(a.index_select(0, idx) for a in arrays)
+        with _fixed_rounds():
+            if self.train:
+                return self.step_fn(state, *batch)[1]
+            return self.step_fn(state, *batch)
+
+    def __call__(self, state, order, *arrays):
+        steps = order.shape[0]
+        if steps == 0:
+            raise ValueError("an epoch needs at least one batch")
+        if order.device.type != "cuda":
+            total = None
+            for row in order:
+                last = self.run_step(state, row, arrays)
+                total = (dict(last) if total is None else
+                         {k: total[k] + last[k] for k in total})
+        else:
+            g = self._graph(state, arrays, order.shape[1])
+            for t in g.total.values():
+                t.zero_()
+            for s in range(steps):
+                g.idx.copy_(order[s])
+                if self.train:
+                    state.set_rate(state.step + s)
+                g.graph.replay()
+            if self.train:
+                state.step += steps
+            last = {k: v.clone() for k, v in g.last.items()}
+            total = g.total
+        return state, {k: v / steps for k, v in total.items()}, last
+
+    def _graph(self, state, arrays, b):
+        key = (id(state), tuple(a.data_ptr() for a in arrays), b)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(state, arrays, b)
+        return self.graphs[key]
+
+    def _capture(self, state, arrays, b):
+        dev = arrays[0].device
+        idx = torch.arange(b, device=dev)
+        if self.train:
+            make_capturable(state)
+        snap = _snapshot(state) if self.train else None
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                last = self.run_step(state, idx, arrays)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if snap is not None:
+            _restore(state, snap)
+        total = {k: torch.zeros_like(v) for k, v in last.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            last = self.run_step(state, idx, arrays)
+            for k, v in last.items():
+                total[k].add_(v)
+        if snap is not None:
+            state.step = snap[0]  # the capture ran apply_gradients' host part
+        return _Graph(graph, idx, last, total)
+
+
+def make_epoch_scan(step_fn, train: bool = True) -> EpochScan:
+    """A whole epoch of ``step_fn`` (a train step of ``make_*_step`` when
+    ``train``, else an eval step, whose state passes through) over a
+    device-resident dataset: ``epoch(state, order [steps, B], *arrays) ->
+    (state, mean_metrics, last_metrics)`` (``EpochScan``)."""
+    return EpochScan(step_fn, train)
+
+
+def run_epoch_scan(epoch_fn, state, dataset, batch_size: int,
+                   shuffle: bool = True, seed: int = 0):
+    """Drive ``make_epoch_scan`` over a ``DeviceCachedDataset``: the
+    epoch's [steps, B] order is ``batch_iterator``'s (``epoch_order``, the
+    partial batch dropped), copied to the device from pinned memory
+    without a sync; the metrics are read once, at the end. Returns (state,
+    {last_*, mean_*} floats), ``run_epoch``'s format."""
+    n = len(dataset)
+    steps = n // batch_size
+    order = epoch_order(n, shuffle, seed)[:steps * batch_size]
+    order = to_device((order.reshape(steps, batch_size),),
+                      dataset.arrays[0].device)[0]
+    state, mean, last = epoch_fn(state, order, *dataset.arrays)
+    values = torch.stack(list(last.values()) + list(mean.values())).tolist()
+    k = len(last)
+    return state, {**{f"last_{m}": v for m, v in zip(last, values[:k])},
+                   **{f"mean_{m}": v for m, v in zip(mean, values[k:])}}

@@ -21,3 +21,10 @@ def resolve_device(device="cuda") -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream is being captured into a graph
+    (False without a card)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())

@@ -14,11 +14,28 @@ import pytest
 import torch
 
 from ndtpu_torch.core.ndt import ndt_downsample
+from ndtpu_torch.data.loader import DeviceCachedDataset
+from ndtpu_torch.models import (
+    NDTNetClassification,
+    NDTNetPPClassification,
+    NDTNetPPSegmentation,
+    NDTNetSegmentation,
+    PointNetClassification,
+    PointNetSegmentation,
+)
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.ops.fps import farthest_point_sampling
 from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel.point_sharded import make_point_sharded_downsample
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
+from ndtpu_torch.tools.train import run_epoch
+from ndtpu_torch.train.loop import (
+    WARMUP_STEPS,
+    make_epoch_scan,
+    make_ndt_seg_step,
+    run_epoch_scan,
+)
+from ndtpu_torch.train.state import create_train_state, make_capturable
 
 # the card checks shared with chip_smoke.py, at the repo's root
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -427,3 +444,212 @@ def test_pointnet_step_on_card_matches_cpu(cuda):
     and on the CPU (chip_smoke.small_pointnet_step_check, compare_step's
     tolerances): no K1 launch."""
     chip_smoke.small_pointnet_step_check()
+
+
+# ---- the trainer extras: the graph epoch, bf16 ----
+
+def graph_setup(n_clouds=8, n=8192, m=256, classes=4):
+    """A DeviceCachedDataset of n_clouds example_cloud clouds with int
+    labels in 1..4 by the signs of x and y, and the probe-search
+    segmentation steps at m NDs."""
+    pts = np.stack([chip_smoke.example_cloud(1, n, seed=s)[0]
+                    for s in range(n_clouds)])
+    labels = (1 + (pts[..., 0] > 0) + 2 * (pts[..., 1] > 0)).astype(np.int32)
+    ds = DeviceCachedDataset(list(zip(pts, labels)), "cuda")
+    return ds, make_ndt_seg_step(m, classes, "probe")
+
+
+def small_state(**kw):
+    return create_train_state(4, 64, lambda _: 1e-3, **kw)
+
+
+@pytest.mark.cuda
+def test_graph_epoch_equals_the_per_step_epoch(cuda):
+    """make_epoch_scan's CUDA graph (2 steps of 4 clouds) against the
+    per-step loop over the same DeviceCachedDataset and order, from the
+    same weights and the same (capturable) Adam: metrics, weights,
+    BatchNorm buffers and Adam's state bit for bit; the eval graph against
+    the per-step eval too."""
+    ds, (step, eval_step) = graph_setup()
+    eager, graph = make_capturable(small_state()), small_state()
+    eager, me = run_epoch(step, eager, ds.loader(4, True, 0), True)
+    graph, mg = run_epoch_scan(make_epoch_scan(step), graph, ds, 4, True, 0)
+    assert me == mg and eager.step == graph.step == 2
+    for a, b in zip(eager.model.state_dict().values(),
+                    graph.model.state_dict().values()):
+        assert torch.equal(a, b)
+    for p, q in zip(eager.optimizer.state.values(),
+                    graph.optimizer.state.values()):
+        assert all(torch.equal(p[k], q[k]) for k in p)
+    assert (run_epoch(eval_step, graph, ds.loader(4, False), False)[1]
+            == run_epoch_scan(make_epoch_scan(eval_step, False), graph, ds, 4,
+                              False)[1])
+
+
+@pytest.mark.cuda
+def test_graph_epoch_resumes_from_a_checkpoint(cuda, tmp_path):
+    """A checkpoint of a state after a graph epoch (capturable Adam)
+    restores into a fresh state (plain Adam, counters on the host), whose
+    graph epoch makes it capturable again (make_capturable, then
+    place_adam_steps moves the counters to the card): it equals the next
+    graph epoch of the state that wrote the checkpoint bit for bit."""
+    from ndtpu_torch.train.state import restore_checkpoint, save_checkpoint
+
+    ds, (step, _) = graph_setup()
+    state = small_state()
+    state, _ = run_epoch_scan(make_epoch_scan(step), state, ds, 4, True, 0)
+    path = save_checkpoint(state, str(tmp_path / "ckpt"))
+    resumed = restore_checkpoint(small_state(), path)
+    assert resumed.rate is None
+    assert all(s["step"].device.type == "cpu"
+               for s in resumed.optimizer.state.values())
+    state, m1 = run_epoch_scan(make_epoch_scan(step), state, ds, 4, True, 1)
+    resumed, m2 = run_epoch_scan(make_epoch_scan(step), resumed, ds, 4, True, 1)
+    assert m1 == m2 and state.step == resumed.step == 4
+    for a, b in zip(state.model.state_dict().values(),
+                    resumed.model.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_replay_makes_no_host_sync_and_launches_k1_once(cuda):
+    """The first graph epoch (warm-up steps, the capture, 2 replays): K1's
+    wrapper counts the warm-up steps' launches and, apart, the one call
+    captured into the graph (chip_smoke.captured_k1); then replays of the
+    captured step under sync debug mode "error" raise nothing and the
+    profiler sees one K1 kernel a replay (chip_smoke.graph_replays), with
+    no launch counted by the wrapper."""
+    ds, (step, _) = graph_setup()
+    state, scan = small_state(), make_epoch_scan(step)
+    before = sm.fused_moments_sorted.launches
+    chip_smoke.captured_k1("test epoch",
+                           lambda: run_epoch_scan(scan, state, ds, 4))
+    assert sm.fused_moments_sorted.launches - before == WARMUP_STEPS
+    chip_smoke.graph_replays("test graph", scan, state, ds, 4)
+    assert sm.fused_moments_sorted.launches - before == WARMUP_STEPS
+
+
+# bf16 forwards, card against CPU (test_bf16_forwards_on_card_match_cpu):
+# eval-mode logits within this share of their largest entry (measured on an
+# H100: 5.3e-3 to 2.75e-2); train-mode logits' gap to the float64 model
+# within this multiple of the CPU's (measured: 0.78 to 1.07 times)
+BF16_CARD_EVAL_TOL = 3e-2
+BF16_CARD_TRAIN_RATIO = 1.5
+
+
+def bf16_forward_case(name):
+    """(a model of family ``name`` in bfloat16, compute and parameters, on
+    the CPU with random weights; its inputs on the CPU: 8 clouds of 512
+    points)."""
+    rng = np.random.default_rng(1)
+    kw = dict(num_classes=4, feature_dim=64, device="cpu", **chip_smoke.BF16)
+    pts = torch.from_numpy(rng.normal(size=(8, 512, 3)).astype(np.float32))
+    covs = torch.from_numpy((0.1 * rng.normal(size=(8, 512, 9))).astype(np.float32))
+    if name.startswith("ndtnetpp"):
+        model = {"ndtnetpp_seg": NDTNetPPSegmentation,
+                 "ndtnetpp_cls": NDTNetPPClassification}[name]
+        cpu_model = model(fine_res=64, coarse_res=32, **kw)
+        p1, c1, _, _, s1 = ndt_preprocessing_with_state(64, pts, None, 4)
+        p2, c2, _, _, _ = ndt_preprocessing_with_state(32, pts, None, 4)
+        args = (p1, c1, s1, p2, c2)
+    else:
+        model = {"ndtnet_seg": NDTNetSegmentation,
+                 "ndtnet_cls": NDTNetClassification,
+                 "pointnet_seg": PointNetSegmentation,
+                 "pointnet_cls": PointNetClassification}[name]
+        cpu_model = model(**kw)
+        args = (pts,) if name.startswith("pointnet") else (pts, covs)
+    return chip_smoke.init_random_(cpu_model, 0), args
+
+
+def float64_twin(model):
+    """The same model and weights computing in float64 on the CPU."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    for mod in twin.modules():
+        for attr in ("dtype", "compute_dtype"):
+            if getattr(mod, attr, None) is not None:
+                setattr(mod, attr, None)
+    return twin.double()
+
+
+def on(a, dev, dtype=None):
+    """A model input (a tensor or a dataclass of tensors) on ``dev``, its
+    floating tensors in ``dtype`` when given."""
+    def move(t):
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+    if isinstance(a, torch.Tensor):
+        return move(a)
+    return type(a)(**{f: move(getattr(a, f)) for f in a.__dataclass_fields__})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("name", ["ndtnet_seg", "ndtnet_cls", "ndtnetpp_seg",
+                                  "ndtnetpp_cls", "pointnet_seg",
+                                  "pointnet_cls"])
+def test_bf16_forwards_on_card_match_cpu(cuda, name, mode):
+    """Each model in bfloat16 (compute and parameters) on the card and on
+    the CPU from the same weights and inputs, bfloat16 logits out. Eval
+    mode: within BF16_CARD_EVAL_TOL of their largest entry (cuBLAS sums
+    bfloat16 products in float32 in another order than the CPU). Train
+    mode: at these sizes the bfloat16 logits are ill-conditioned (the
+    BatchNorms over the B rows of the TNets' FC layers divide by a spread
+    that a rounding moves: a relative perturbation of 2**-9 of the inputs
+    moves them by 15-55 % of their largest entry on the CPU), so card and
+    CPU are each held to the same model in float64 on the CPU: the card's
+    gap to it at most BF16_CARD_TRAIN_RATIO times the CPU's."""
+    import copy
+
+    cpu_model, args = bf16_forward_case(name)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    train = mode == "train"
+    with torch.no_grad():
+        ref = (float64_twin(cpu_model).train()(
+            *(on(a, "cpu", torch.float64) for a in args), return_logits=True)
+            if train else None)
+        outs = [m.train(train)(*(on(a, dev) for a in args), return_logits=True)
+                for m, dev in ((cpu_model, "cpu"), (card_model, cuda))]
+    assert all(o.dtype == torch.bfloat16 for o in outs)
+    outs = [o.cpu().float() for o in outs]
+    assert outs[1].isfinite().all()
+    scale = float(outs[0].abs().max())
+    card_cpu = float((outs[0] - outs[1]).abs().max()) / scale
+    if not train:
+        print(f"{name} eval: card vs CPU {card_cpu:.3e}")
+        assert card_cpu <= BF16_CARD_EVAL_TOL, card_cpu
+        return
+    cpu_gap, card_gap = (float((o.double() - ref).abs().max() / ref.abs().max())
+                         for o in outs)
+    print(f"{name} train: to float64 card {card_gap:.3e}, CPU {cpu_gap:.3e}; "
+          f"card vs CPU {card_cpu:.3e}")
+    assert card_gap <= BF16_CARD_TRAIN_RATIO * cpu_gap, (card_gap, cpu_gap)
+
+
+@pytest.mark.cuda
+def test_dense_rounds_the_product_before_the_bias_on_card(cuda):
+    """Dense in bfloat16 on the card adds the bias to the rounded bfloat16
+    product, as flax's nn.Dense does, and does not fuse it into the GEMM
+    (F.linear's cuBLAS epilogue, which rounds once: on these inputs its
+    output differs, so the check tells the two apart)."""
+    from ndtpu_torch.models.dense import Dense
+
+    torch.manual_seed(0)
+    dense = Dense(256, 128, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(4096, 256, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        want = torch.matmul(x, dense.weight.t()) + dense.bias
+        assert torch.equal(dense(x), want)
+        fused = torch.nn.functional.linear(x, dense.weight, dense.bias)
+        assert not torch.equal(fused, want)
+
+
+@pytest.mark.cuda
+def test_bf16_step_on_card_matches_cpu(cuda):
+    """One bfloat16 segmentation step on the card and on the CPU
+    (chip_smoke.bf16_step_check, which states the tolerances)."""
+    chip_smoke.bf16_step_check()

@@ -525,9 +525,7 @@ def test_synthetic_seg_and_batches_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data_axis", "model"],
-    ["--use_pallas", "on"], ["--compute_dtype", "bfloat16"],
-    ["--param_dtype", "bfloat16"], ["--device_cache"],
+    ["--data_axis", "model"], ["--use_pallas", "on"],
     ["--num_processes", "2"], ["--coordinator", "h:1"],
 ])
 def test_config_raises_on_flags_not_ported(flag):
@@ -539,11 +537,15 @@ def test_config_raises_on_flags_not_ported(flag):
     (["--train_path", "x", "--val_path", "y", "--test_path", "z"],
      "train_path", "x"),
     (["--search", "grid"], "search", "grid"),
+    (["--compute_dtype", "bfloat16"], "compute_dtype", "bfloat16"),
+    (["--param_dtype", "bfloat16"], "param_dtype", "bfloat16"),
+    (["--device_cache"], "device_cache", True),
 ])
 def test_config_accepts_the_flags_of_the_rest_of_the_sampler_and_data(
         flag, field, value):
-    """The segmentation trainers' PLY trees (CarlaSeg) and the grid
-    search are ported: the config takes them as the JAX config does."""
+    """The segmentation trainers' PLY trees (CarlaSeg), the grid search
+    and the trainer extras (bfloat16 types, the device-resident dataset)
+    are ported: the config takes them as the JAX config does."""
     from ndtpu.train.config import TrainConfig as JaxTrainConfig
 
     cfg = TrainConfig.from_args(["--device", "cpu"] + flag)
