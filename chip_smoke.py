@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet,
-CARLA data and trainer-extras paths on one NVIDIA card and check them.
+CARLA data, trainer-extras and data-parallel paths on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -111,6 +112,22 @@ Phases, each of which ends the script with a non-zero exit on failure:
    captured into a graph apart, in ``captured``) plus one for each replay
    of a graph that captured one K1 call; K1 is held against its plain
    version after the counts are read.
+12. Data parallelism (the trainers' --num_processes): the segmentation,
+   multiscale and PointNet steps at full width from one state on one
+   batch, in float64 without a group, and on a one-rank NCCL data group in
+   float64 and in float32 (compute and parameters; one K1 launch a
+   resolution each): the float64 DP step held to the float64 step within
+   1e-9 of each gradient leaf's largest, the float32 DP step to it
+   within its model's limit, the float32 step's collectives counted
+   (all-reduces only, bytes within [param_bytes, 1.15 param_bytes +
+   4096]); 5 timed segmentation steps without a group beside 5 timed DP
+   steps, each with its stage split and kernel count; the DP graph epoch
+   on a sharded DeviceCachedDataset of 32 SyntheticSeg clouds,
+   bit-identical to the per-step DP epoch, no host sync in a replay, K1
+   once a replay, timed; 3 timed multiscale and PointNet DP steps; two
+   worker processes of this script (``--dp_worker``) as two gloo ranks on
+   the one card (NCCL takes one rank a card), 2 steps at lr 0 and 2 at lr
+   1e-3 in float64 against one process on the whole batch.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -133,7 +150,6 @@ import warnings
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ndtpu_torch.core import moments, ndt, voxel
 from ndtpu_torch.core.kl import INT32_MAX, neighbor_min_kl
@@ -156,6 +172,7 @@ from ndtpu_torch.ops import _build
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.ops.fps import farthest_point_sampling
 from ndtpu_torch.parallel import mesh
+from ndtpu_torch.parallel.collectives import Collectives
 from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.serve import SegmentationPipeline, init_random_
@@ -171,7 +188,13 @@ from ndtpu_torch.train.loop import (
 )
 from ndtpu_torch.train.state import create_train_state, make_capturable
 from ndtpu_torch.core.ndt import _fixed_rounds
-from ndtpu_torch.data.loader import DeviceCachedDataset
+from ndtpu_torch.data.loader import (
+    CachedDataset,
+    DeviceCachedDataset,
+    batch_iterator,
+    prefetch_to_device,
+    sharded_batch,
+)
 from ndtpu_torch.tools._common import make_dataset
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import make_epoch_scan, run_epoch_scan
@@ -711,29 +734,6 @@ def giant_kernels(points, state):
     return k1_err, k1_giant, out
 
 
-class Collectives:
-    """Counts the torch.distributed collectives called inside the block,
-    by (name, shape)."""
-
-    def __enter__(self):
-        self.calls = collections.Counter()
-        self.saved = dist.all_gather, dist.all_reduce
-
-        def gather(parts, t, **kw):
-            self.calls["all_gather", tuple(t.shape)] += 1
-            return self.saved[0](parts, t, **kw)
-
-        def reduce(t, **kw):
-            self.calls["all_reduce", tuple(t.shape)] += 1
-            return self.saved[1](t, **kw)
-
-        dist.all_gather, dist.all_reduce = gather, reduce
-        return self
-
-    def __exit__(self, *exc):
-        dist.all_gather, dist.all_reduce = self.saved
-
-
 def check_giant(out, label):
     pcl, covs, labels, out_mask, state = out
     if not bool(state.converged.all()):
@@ -829,7 +829,7 @@ def giant_phase():
     shape, [K3 entry, K2 entry] with their launches) of the giant path."""
     t0 = time.perf_counter()
     points = torch.from_numpy(giant_cloud(GIANT_N, seed=0)).cuda()
-    group = mesh.make_point_group("cuda")
+    group = mesh.make_group("cuda")
     try:
         fn = ps.make_point_sharded_downsample(GIANT_M, group=group,
                                               search="probe")
@@ -844,7 +844,7 @@ def giant_phase():
         lat, evals = [], []
         with Collectives() as coll:
             for i in range(GIANT_RUNS):
-                coll.calls.clear()
+                coll.clear()
                 k1, k3 = (sm.fused_moments_sorted.launches,
                           sm.segment_tags_sorted.launches)
                 start = torch.cuda.Event(enable_timing=True)
@@ -917,7 +917,7 @@ def giant_phase():
             raise AssertionError("giant prune: wrong kept count")
         prune_ms = time_ms(lambda: ndt.ndt_prune(state, GIANT_M // 2))
     finally:
-        mesh.release_point_group()
+        mesh.release_group()
     med = statistics.median(lat)
     print(f"giant: median {med:.3f} ms/cloud ({1e3 / med:.2f} clouds/s, "
           f"{GIANT_N / med / 1e3:.2f} Mpts/s) over {GIANT_RUNS} runs; "
@@ -1256,8 +1256,9 @@ def trainer_runs(label, main, args, resume):
     return runs, len(rec.calls), state.step
 
 
-def timed_train(label, step, state, batch, k1_per_step, preps):
-    """A train step on the card: one warm-up, then TRAIN_STEPS timed with
+def timed_train(label, step, state, batch, k1_per_step, preps,
+                steps=TRAIN_STEPS):
+    """A train step on the card: one warm-up, then ``steps`` timed with
     CUDA events, each with finite metrics and ``k1_per_step`` K1 launches;
     the host syncs of a step against those of its preprocessings alone
     (``preps``: (stage name, NDs, ground truth or None) a call); the stage
@@ -1267,7 +1268,7 @@ def timed_train(label, step, state, batch, k1_per_step, preps):
     torch.cuda.reset_peak_memory_stats()
     state, _ = step(state, *batch)
     lat, host = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = k1.launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1294,20 +1295,20 @@ def timed_train(label, step, state, batch, k1_per_step, preps):
         raise AssertionError(f"{label} step: {syncs} host syncs, its "
                              f"preprocessings alone {prep_syncs}")
     stages = [train_stages(step, state, *batch, preps=[n for n, _, _ in preps])
-              for _ in range(TRAIN_STEPS)]
+              for _ in range(steps)]
     split = {k: statistics.median(r[k] for r in stages) for k in stages[0]}
     launches = k1.launches - start_launches
-    want = k1_per_step * (2 + 2 * TRAIN_STEPS) + len(preps)
+    want = k1_per_step * (2 + 2 * steps) + len(preps)
     if launches != want:
         raise AssertionError(f"{label}: {launches} K1 launches, expected {want}")
     med = statistics.median(lat)
     batch_size = batch[0].shape[0]
     print(f"{label}: median {med:.3f} ms/step (events), "
           f"{statistics.median(host):.3f} ms (host), {batch_size / med * 1e3:.1f} "
-          f"clouds/s over {TRAIN_STEPS} steps; {syncs} host syncs flagged per "
+          f"clouds/s over {steps} steps; {syncs} host syncs flagged per "
           f"step (the preprocessings' {prep_syncs}); {k1_per_step} K1 "
           f"launch(es) per step; peak memory {peak_gb:.2f} GB")
-    print(f"{label} stages (median of {TRAIN_STEPS}, ms): " + ", ".join(
+    print(f"{label} stages (median of {steps}, ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
     return med, launches
 
@@ -2418,7 +2419,411 @@ def extras_phase():
     return launches, err, times
 
 
+# ---- data parallelism ----
+
+DP_OUT = "build/chip_smoke_dp"
+DP_TIMED = 3                          # timed DP steps of the multiscale and PointNet steps
+# the two-rank check's width and rates (two gloo ranks on the one card)
+TR_B, TR_N, TR_M, TR_F, TR_C = 4, 8192, 256, 64, 4
+TR_LRS = (0.0, 1e-3)
+TR_STEPS = 2
+F64 = dict(dtype=torch.float64, param_dtype=torch.float64)
+
+
+# The DP step on a one-rank NCCL group against the step without a group
+# (dp_step_check), both from the seed-0 weights on the same batch. In
+# float64 (compute and parameters; the preprocessing and K1 stay float32)
+# the two compute one step, their sums only grouped otherwise: every
+# gradient leaf within DP64_GRAD_TOL of its largest |grad| (measured on an
+# NVIDIA H100 80GB HBM3, 700 W: 1.3e-13 segmentation, 4.2e-12 multiscale,
+# 5.7e-14 PointNet). The float32 DP step, the trainers' default, is held
+# to that float64 step leaf by leaf (compare_step's ref64 rules) within
+# its model's DP32_GRAD_TOL, about 2.4x the largest gap measured there
+# (4.2e-2 segmentation, 1.05e-1 multiscale, 4.7e-3 PointNet; 1.1e-5 for
+# the small step): float32 rounding through the BatchNorms over the B
+# rows of the TNets' FC layers moves a leaf by up to a tenth at B 4.
+DP64_GRAD_TOL = 1e-9
+DP32_GRAD_TOL = {"segmentation": 1e-1, "multiscale": 2.5e-1,
+                 "pointnet": PN_GRAD_TOL}
+
+
+def hold_to_float64(label, what, got, ref, rows, grad_tol, exact):
+    """A TrainState after one step and its metrics (``got``) against the
+    float64 step's (``ref``). The loss to STEP_RTOL, the accuracy to one of
+    ``rows`` (plus two float32 ulps: both are float32 fractions of a hit
+    count); each gradient leaf within ``grad_tol`` of the float64 leaf's
+    largest |grad| (leaves whose largest is below 1e-6 of the model's are
+    noise: the biases in front of a BatchNorm). With ``exact`` (both
+    float64) the running statistics to STEP_RTOL (atol 1e-5) and every
+    parameter to 1e-6 where |grad| >= GRAD_TOL of its leaf's largest;
+    otherwise the parameters where the float64 |grad| exceeds twice the
+    leaf's gap and 4 lr eps / 1e-6 (compare_step's ref64 rules), and the
+    running statistics' gap is only printed, as a share of the exact
+    rule's limit. Prints the largest gaps, then raises on every limit
+    broken. Returns the readings."""
+    (state, m), (state64, m64) = got, ref
+    bad = []
+    loss_gap = abs(m["loss"] - m64["loss"]) / abs(m64["loss"])
+    acc_rows = abs(m["accuracy"] - m64["accuracy"]) * rows
+    if loss_gap > STEP_RTOL:
+        bad.append(f"loss {m['loss']} against {m64['loss']}")
+    ulp = float(np.spacing(np.float32(max(m["accuracy"], m64["accuracy"]))))
+    if abs(m["accuracy"] - m64["accuracy"]) > 1 / rows + 2 * ulp:
+        bad.append(f"accuracy {m['accuracy']} against {m64['accuracy']}")
+    bufs = dict(state.model.named_buffers())
+    buf_gap = 0.0  # the largest |b - b64| / (1e-5 + STEP_RTOL |b64|)
+    for name, b64 in state64.model.named_buffers():
+        b = bufs[name].double()
+        buf_gap = max(buf_gap, float(((b - b64).abs()
+                                      / (1e-5 + STEP_RTOL * b64.abs())).max()))
+        if exact and not torch.allclose(b, b64, rtol=STEP_RTOL, atol=1e-5):
+            bad.append(f"running statistic {name}")
+    params = dict(state.model.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in state64.model.parameters())
+    worst, worst_leaf, compared, total = 0.0, None, 0, 0
+    for name, p64 in state64.model.named_parameters():
+        g64, p = p64.grad, params[name]
+        total += p64.numel()
+        leaf = float(g64.abs().max())
+        if leaf < 1e-6 * gmax:
+            continue
+        gap = float((p.grad.double() - g64).abs().max())
+        if gap / leaf >= worst:
+            worst, worst_leaf = gap / leaf, name
+        if gap > grad_tol * leaf:
+            bad.append(f"grad of {name} {gap / leaf:.3e} of its largest")
+        if exact:
+            keep = g64.abs() >= GRAD_TOL * leaf
+        else:
+            keep = (g64.abs() > 2 * gap) & (g64.abs() >= 4 * TRAIN_LR * ADAM_EPS / 1e-6)
+        off = float((p.detach().double()[keep] - p64.detach()[keep]).abs().max()
+                    ) if bool(keep.any()) else 0.0
+        if off > 1e-6:
+            bad.append(f"parameter {name} {off:.3e} apart")
+        compared += int(keep.sum())
+    print(f"{label}: {what}: loss {m['loss']!r} / {m64['loss']!r} (gap "
+          f"{loss_gap:.3e}), accuracy {acc_rows:.3f} rows apart; largest "
+          f"gradient gap of a leaf, of its largest, {worst:.3e} ({worst_leaf}; "
+          f"limit {grad_tol:g}); running statistics at {buf_gap:.3e} of "
+          f"rtol {STEP_RTOL:g} / atol 1e-5; {compared} of {total} parameters "
+          "compared")
+    if bad:
+        raise AssertionError(f"{label}: {what}: " + "; ".join(bad))
+    return {"grad_gap": worst, "loss_gap": loss_gap, "accuracy_rows": acc_rows,
+            "buffer_gap": buf_gap}
+
+
+def dp_step_check(label, step, make_state, batch, k1_per_step, rows,
+                  grad_tol):
+    """One train step from the seed-0 weights (``make_state(**types)``)
+    on ``batch``, three times: in float64 without a data group, then on a
+    one-rank NCCL data group in float64 and in float32, ``k1_per_step``
+    K1 launches each. The float64 DP step held to the float64 step
+    within DP64_GRAD_TOL (hold_to_float64, exact), the float32 DP step
+    within ``grad_tol``; the float32 DP step's collectives all-reduces
+    only, their bytes within [param_bytes, 1.15 param_bytes + 4096]
+    (tests/test_collectives.py:60-73). Returns the collectives (count,
+    bytes, parameter bytes) and the gaps."""
+    k1 = sm.fused_moments_sorted
+
+    def run(state, counted=contextlib.nullcontext()):
+        before = k1.launches
+        with counted:
+            state, m = step(state, *batch)
+        if k1.launches - before != k1_per_step:
+            raise AssertionError(f"{label}: K1 launched {k1.launches - before} "
+                                 f"times in a step, expected {k1_per_step}")
+        return state, {k: float(v) for k, v in m.items()}
+
+    ref = run(make_state(**F64))
+    mesh.make_data_group("cuda")
+    try:
+        dp64 = run(make_state(**F64))
+        coll = Collectives()
+        dp32 = run(make_state(), coll)
+    finally:
+        mesh.release_group()
+    moved = coll.nbytes["all_reduce"]
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in dp32[0].model.parameters())
+    if ({c.op for c in coll.log} != {"all_reduce"}
+            or not param_bytes <= moved <= 1.15 * param_bytes + 4096):
+        raise AssertionError(f"{label}: DP step collectives {dict(coll.calls)}, "
+                             f"{moved} bytes, parameters {param_bytes}")
+    gaps64 = hold_to_float64(label, "float64 DP step vs the float64 step",
+                             dp64, ref, rows, DP64_GRAD_TOL, True)
+    gaps32 = hold_to_float64(label, "float32 DP step vs the float64 step",
+                             dp32, ref, rows, grad_tol, False)
+    print(f"{label}: a float32 DP step makes {len(coll.log)} all-reduces of "
+          f"{moved} bytes ({moved / param_bytes:.4f} x the parameters' "
+          f"{param_bytes})")
+    return {"collectives": len(coll.log), "bytes": moved,
+            "param_bytes": param_bytes, "float64": gaps64, "float32": gaps32}
+
+
+def small_dp_step_check():
+    """dp_step_check at the small width (the card-vs-CPU steps' batch):
+    one K1 launch a step."""
+    step, _ = make_ndt_seg_step(SMALL_M, SMALL_C, "reference")
+    batch = tuple(torch.from_numpy(a).cuda() for a in small_batch())
+    return dp_step_check(
+        "small DP step", step, lambda **kw: create_train_state(
+            SMALL_C, SMALL_F, lambda _: TRAIN_LR, **kw),
+        batch, 1, len(SMALL_SEEDS) * SMALL_M, DP32_GRAD_TOL["segmentation"])
+
+
+def two_rank_batch():
+    """The two-rank check's global batch: make_batch(TR_B, TR_N, seed 5)
+    and int labels default_rng(6).integers(0, TR_C), on the CPU."""
+    points = torch.from_numpy(make_batch(TR_B, TR_N, seed=5))
+    labels = torch.from_numpy(np.random.default_rng(6).integers(
+        0, TR_C, (TR_B, TR_N)).astype(np.int32))
+    return points, labels
+
+
+def two_rank_runs(rank=None):
+    """For each rate of TR_LRS, TR_STEPS segmentation steps (probe search,
+    float64 compute and parameters) from the seed-0 state on the card: on
+    the whole global batch (``rank`` None) or on rank ``rank``'s strided
+    half of it. Returns {lr: (each step's metrics, the final state_dict,
+    the gradients of the last step), on the CPU}."""
+    points, labels = two_rank_batch()
+    if rank is not None:
+        points, labels = points[rank::2], labels[rank::2]
+    points, labels = points.cuda(), labels.cuda()
+    step, _ = make_ndt_seg_step(TR_M, TR_C, "probe")
+    out = {}
+    for lr in TR_LRS:
+        state = create_train_state(TR_C, TR_F, lambda _, lr=lr: lr, **F64)
+        metrics = []
+        for _ in range(TR_STEPS):
+            state, m = step(state, points, labels)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[lr] = (metrics,
+                   {k: v.cpu() for k, v in state.model.state_dict().items()},
+                   {n: p.grad.cpu() for n, p in state.model.named_parameters()})
+    return out
+
+
+def dp_worker(rank, port, out):
+    """One rank of the two-rank check: joins a gloo group of two
+    processes on the one card (NCCL takes one rank a card), runs
+    ``two_rank_runs(rank)`` and saves its results and its K1 launches to
+    ``out``. Rank 0 prints its metrics; rank 1 prints nothing."""
+    mesh.init_distributed(f"localhost:{port}", 2, rank, device="cuda",
+                          backend="gloo")
+    try:
+        sm.fused_moments_sorted.launches = 0
+        runs = two_rank_runs(rank)
+        launches = sm.fused_moments_sorted.launches
+    finally:
+        mesh.release_group()
+    torch.save({"runs": runs, "launches": launches}, out)
+    if rank == 0:
+        print(json.dumps({str(lr): m for lr, (m, _, _) in runs.items()}))
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def two_rank_gloo_check():
+    """Two worker processes (``chip_smoke.py --dp_worker``), each on the
+    one card in a gloo group, take TR_STEPS DP steps at each rate of
+    TR_LRS (float64) on their halves of the global batch; this process
+    takes the same steps on the whole batch with no group. The losses to
+    rtol 1e-5 at lr 0 and 1e-6 at lr 1e-3, the accuracies to 1e-6 (the
+    CPU tests' tolerances), the parameters and running statistics to the
+    same rtol (atol 1e-9); rank 1 prints nothing. Returns the workers' K1
+    launches."""
+    os.makedirs(DP_OUT, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    outs = [os.path.abspath(os.path.join(DP_OUT, f"rank{r}.pt")) for r in (0, 1)]
+    env = dict(os.environ, PYTHONPATH=here)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp_worker", str(r),
+         str(port), outs[r]], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        results = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise AssertionError(f"two-rank worker {r} failed:\n{out}\n{err[-3000:]}")
+    if results[1][0].strip():
+        raise AssertionError(f"rank 1 printed: {results[1][0]!r}")
+    got = [torch.load(o, weights_only=False) for o in outs]
+    want = two_rank_runs()
+    for lr in TR_LRS:
+        rtol = 1e-6 if lr else 1e-5
+        (m_ref, s_ref, _), (m0, s0, _), (m1, s1, _) = (
+            want[lr], got[0]["runs"][lr], got[1]["runs"][lr])
+        for i, (a, b, c) in enumerate(zip(m_ref, m0, m1)):
+            for k in a:
+                tol = rtol * abs(a[k]) if "loss" in k else 1e-6
+                if abs(b[k] - a[k]) > tol or b[k] != c[k]:
+                    raise AssertionError(f"two ranks, lr {lr}, step {i}: {k} "
+                                         f"{b[k]} / {c[k]}, one process {a[k]}")
+        for k, v in s_ref.items():
+            if not torch.equal(s0[k], s1[k]):
+                raise AssertionError(f"two ranks, lr {lr}: {k} differs by rank")
+            torch.testing.assert_close(s0[k], v, rtol=rtol, atol=1e-9)
+        gap = max(float((s0[k] - v).abs().max()) for k, v in s_ref.items())
+        print(f"two gloo ranks on the card, lr {lr}, float64: {TR_STEPS} steps "
+              f"== one process (losses {[m['loss'] for m in m0]} / "
+              f"{[m['loss'] for m in m_ref]}; largest state gap {gap:.3e})")
+    launches = [g["launches"] for g in got]
+    want_launches = len(TR_LRS) * TR_STEPS
+    if launches != [want_launches] * 2:
+        raise AssertionError(f"two ranks: K1 launches {launches}")
+    print(f"rank 0: {results[0][0].strip()}")
+    return sum(launches)
+
+
+def dp_graph_epoch(label, step, make_state, host, b):
+    """The DP graph epoch on the data group (a one-rank NCCL group): the
+    dataset ``host`` as a DeviceCachedDataset sharded over it; the
+    per-step DP epoch over the trainer's host loader (this rank's
+    batch_iterator slices) against the graph epoch (make_epoch_scan with
+    the sharding: each step assembles its batch with sharded_batch's
+    all-reduces) from the same weights (``make_state()``) and order, bit
+    for bit; then the graph checked and timed (graph_replays: no host sync
+    in a replay, K1 once a replay). Returns (the replays made, timings and
+    the batch assembly's bytes a step)."""
+    group = mesh.data_group()
+    ds = DeviceCachedDataset(host, "cuda", sharding=group)
+    eager = make_capturable(make_state())
+    loader = prefetch_to_device(batch_iterator(
+        host, b, True, 0, mesh.data_rank(), mesh.data_size()), "cuda")
+    eager, me = train_cli.run_epoch(step, eager, loader, True)
+    graph = make_state()
+    scan = make_epoch_scan(step, True, group)
+    graph, mg = captured_k1(f"{label} epoch", lambda: run_epoch_scan(
+        scan, graph, ds, b, True, 0))
+    steps = len(ds) // b
+    if graph.step != eager.step or graph.step != steps:
+        raise AssertionError(f"{label} graph epoch: step {graph.step}")
+    gaps = state_gaps(eager, graph)
+    if any(gaps.values()) or me != mg:
+        raise AssertionError(f"{label}: the graph epoch is not bit-identical "
+                             "to the per-step DP epoch (largest state gap "
+                             f"{max(gaps.values()):.3e}, metrics {mg} vs {me})")
+    print(f"{label}: graph epoch vs per-step epoch: bit-identical")
+    with Collectives() as coll:
+        sharded_batch(ds.arrays, one_step_order(b)[0], group)
+    gather = coll.nbytes["all_reduce"]
+    ms, host_ms, r = graph_replays(label, scan, graph, ds, b)
+    print(f"{label} graph step: batch assembly {len(coll.log)} all-reduces "
+          f"of {gather} bytes a step")
+    return steps + r, {"dp_graph_step_ms": ms, "dp_graph_step_host_ms": host_ms,
+                       "dp_gather_bytes_per_step": gather}
+
+
+def dp_phase(graph_step_ms):
+    """Data parallelism on the one card: (a) at TrainConfig's segmentation
+    width, the DP step on a one-rank NCCL data group against the step
+    without a group (dp_step_check: float64 and float32, collectives,
+    bytes, K1), then 5 timed steps without a group beside 5 timed DP steps
+    with the stage split (timed_train), and the DP graph epoch on a
+    sharded DeviceCachedDataset (dp_graph_epoch), its replay beside the
+    trainer-extras phase's graph step (``graph_step_ms``, this call); (c)
+    the multiscale and PointNet DP steps against their steps, and
+    DP_TIMED timed DP steps each; (b)
+    two gloo ranks on the card against one process
+    (two_rank_gloo_check). Returns (K1 launches on this path: the
+    wrapper's count, the graph's replays and the two workers' launches;
+    timings)."""
+    t0 = time.perf_counter()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    points, labels = train_batch()
+    seg_step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
+
+    def seg_state(**kw):
+        return create_train_state(C, F, lambda _: TRAIN_LR, **kw)
+
+    ms_points = torch.from_numpy(make_batch(MS_B, N, seed=1)).cuda()
+    ms_labels = labels[:MS_B]
+    ms_step, _ = make_multiscale_seg_step(MS_FINE, MS_COARSE, C, "probe")
+
+    def ms_state(**kw):
+        return create_train_state(C, MS_F, lambda _: TRAIN_LR,
+                                  model=NDTNetPPSegmentation, fine_res=MS_FINE,
+                                  coarse_res=MS_COARSE, **kw)
+
+    ms_preps = [("fine prep", MS_FINE, ms_labels),
+                ("coarse prep", MS_COARSE, ms_labels)]
+    pn_pts, pn_labels = pointnet_batch(B, PN_N, seed=3)
+    pn_batch = (torch.from_numpy(pn_pts).cuda(), torch.from_numpy(pn_labels).cuda())
+    pn_step, _ = make_pointnet_seg_step(C)
+
+    def pn_state(**kw):
+        return create_train_state(C, F, lambda _: TRAIN_LR,
+                                  model=PointNetSegmentation, **kw)
+
+    times = {}
+    for model, step, make_state, batch, k1, rows in (
+            ("segmentation", seg_step, seg_state, (points, labels), 1,
+             B * TRAIN_M),
+            ("multiscale", ms_step, ms_state, (ms_points, ms_labels), 2,
+             MS_B * MS_FINE),
+            ("pointnet", pn_step, pn_state, pn_batch, 0, B * PN_N)):
+        times["DP " + model] = dp_step_check(
+            "DP " + model, step, make_state, batch, k1, rows,
+            DP32_GRAD_TOL[model])
+    preps = [("preprocessing", TRAIN_M, labels)]
+
+    def timed_with_profile(label, key):
+        state = seg_state()
+        times[key], _ = timed_train(label, seg_step, state, (points, labels),
+                                    1, preps)
+        n, busy, wall, _ = device_share(lambda: seg_step(state, points, labels))
+        times[key + "_kernels"] = n
+        print(f"{label} profile: {n} kernels, device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms (idle {1 - busy / wall:.1%})")
+
+    timed_with_profile("train (no group)", "step_ms")
+    mesh.make_data_group("cuda")
+    try:
+        timed_with_profile("DP train (one-rank NCCL)", "dp_step_ms")
+        host = CachedDataset(make_dataset(C, N, synthetic_length=EXTRAS_CLOUDS,
+                                          seed=0, int_labels=True))
+        replays, more = dp_graph_epoch("DP segmentation", seg_step, seg_state,
+                                       host, B)
+        times.update(more, graph_step_ms=graph_step_ms)
+        times["dp_multiscale_step_ms"], _ = timed_train(
+            "DP multiscale (one-rank NCCL)", ms_step, ms_state(),
+            (ms_points, ms_labels), 2, ms_preps, steps=DP_TIMED)
+        times["dp_pointnet_step_ms"], _ = timed_train(
+            "DP pointnet (one-rank NCCL)", pn_step, pn_state(), pn_batch, 0, [],
+            steps=DP_TIMED)
+    finally:
+        mesh.release_group()
+    print(f"DP graph step {times['dp_graph_step_ms']:.3f} ms beside the "
+          f"graph step without a group {graph_step_ms:.3f} ms (trainer-extras "
+          "phase, this call)")
+    workers = two_rank_gloo_check()
+    eager = sm.fused_moments_sorted.launches
+    launches = eager + replays + workers
+    print(f"dp: K1 {launches} launches: {eager} eager (counted by its wrapper) "
+          f"+ {replays} graph replays of one captured K1 call each + {workers} "
+          f"in the two gloo ranks; phase took {time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp_worker"]:
+        return dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2440,15 +2845,17 @@ def main() -> int:
     pn_launches = pointnet_phase()
     carla_launches, carla_err, fps = carla_phase()
     extras_launches, extras_err, extras_times = extras_phase()
-    # K1's launches on the eight main paths; its giant-, training- and
+    dp_launches, dp_times = dp_phase(extras_times["graph_step_ms"])
+    # K1's launches on the nine main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
     k1["launches"] = (served + giant_launches + train_launches + cls_launches
                       + ms_launches + var_launches + pn_launches
-                      + carla_launches + extras_launches)
+                      + carla_launches + extras_launches + dp_launches)
     k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err,
                             var_err, carla_err, extras_err)
     k1["graph"] = extras_times
+    k1["dp"] = dp_times
     k1["giant"] = giant_times
     k1["train"] = train_times
     k1["multiscale"] = ms_times

@@ -103,12 +103,12 @@ def inputs():
     """(label, kernel, args, moved bytes or None) at the real shapes."""
     real = cs.canonical_inputs(torch.from_numpy(make_batch(cs.B, cs.N, seed=0)).cuda())
     points = torch.from_numpy(giant_cloud(cs.GIANT_N, seed=0)).cuda()
-    group = mesh.make_point_group("cuda")
+    group = mesh.make_group("cuda")
     try:
         state = ps.make_point_sharded_downsample(cs.GIANT_M, group=group,
                                                  search="probe")(points)[4]
     finally:
-        mesh.release_point_group()
+        mesh.release_group()
     oracle, mseg = cs.giant_oracle_inputs(points, state)
     batch, bseg, bk = cs.batch_sum_inputs(real)
     wide = torch.from_numpy(np.random.default_rng(32).normal(

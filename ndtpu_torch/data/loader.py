@@ -6,6 +6,12 @@ The prefetcher copies each batch from pinned host memory with
 ``non_blocking=True``, so the copy of batch i + 1 is queued behind step i
 and the host does not wait for it. ``DeviceCachedDataset`` uploads a
 whole dataset once and gathers each batch on the device.
+
+Under a data group of P processes every rank follows the same schedule of
+global batches and loads only its slice of each (``batch_iterator``'s
+``process_id``/``num_processes``); a sharded ``DeviceCachedDataset``
+holds a 1/P block of the rows on each rank, and ``sharded_batch``
+assembles a rank's slice of a global batch from the blocks.
 """
 from __future__ import annotations
 
@@ -14,7 +20,9 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ndtpu_torch.parallel.mesh import data_size
 from ndtpu_torch.utils.device import resolve_device
 
 
@@ -28,10 +36,19 @@ def epoch_order(n: int, shuffle: bool = True, seed: int = 0):
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
-                   seed: int = 0) -> Iterator:
+                   seed: int = 0, process_id: int = 0,
+                   num_processes: int = 1) -> Iterator:
     """Yields tuples of stacked numpy arrays, samples fetched on a pool of
     4 threads; a last partial batch is dropped. The order is
-    ``epoch_order``, so a seed gives the JAX loader's batches."""
+    ``epoch_order``, so a seed gives the JAX loader's batches.
+
+    ``batch_size`` is the global batch size: with ``num_processes`` > 1
+    every process draws the same order and yields only its strided slice
+    ``idxs[process_id::num_processes]`` of each global batch (ValueError
+    unless the batch size divides by the process count)."""
+    if batch_size % num_processes:
+        raise ValueError(f"global batch_size {batch_size} must divide by "
+                         f"num_processes {num_processes}")
     n = len(dataset)
     order = epoch_order(n, shuffle, seed)
 
@@ -40,7 +57,7 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
 
     with cf.ThreadPoolExecutor(max_workers=4) as pool:
         for start in range(0, n - batch_size + 1, batch_size):
-            idxs = order[start:start + batch_size]
+            idxs = order[start:start + batch_size][process_id::num_processes]
             samples = list(pool.map(fetch, idxs))
             yield tuple(np.stack([s[k] for s in samples])
                         for k in range(len(samples[0])))
@@ -97,29 +114,72 @@ class DeviceCachedDataset:
     one tensor ``arrays[k]`` [n, ...]; then batches are gathered on the
     device. ``loader`` gives ``batch_iterator``'s batches, and
     ``train/loop.py::run_epoch_scan`` gathers the same ones inside the
-    epoch. The multi-process form of the JAX class (a ``sharding``)
-    waits for the ROADMAP item "Multi-process data parallelism"."""
+    epoch.
+
+    ``sharding`` (a process group: the data group) makes the
+    multi-process form: rank r of P uploads only its contiguous block of
+    rows ``[r n / P, (r + 1) n / P)`` (ValueError unless n divides by P),
+    so global row i is still dataset index i, and ``len`` is n. Its
+    batches are assembled inside ``make_epoch_scan(..., sharding)``'s
+    epoch (``sharded_batch``); ``loader`` reads only a whole dataset.
+    Under a data group of more than one process a dataset must be
+    sharded."""
 
     def __init__(self, ds, device="cuda", sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "a sharded DeviceCachedDataset waits for the ROADMAP item "
-                "\"Multi-process data parallelism\"")
         dev = resolve_device(device)
-        samples = [ds[i] for i in range(len(ds))]
+        n = len(ds)
+        rows = range(n)
+        if sharding is None:
+            if data_size() > 1:
+                raise ValueError("multi-process DeviceCachedDataset needs "
+                                 "the data group as its sharding")
+        else:
+            size, rank = dist.get_world_size(sharding), dist.get_rank(sharding)
+            if n % size:
+                raise ValueError(f"dataset length {n} must divide by "
+                                 f"process count {size} for block sharding")
+            rows = range(rank * (n // size), (rank + 1) * (n // size))
+        self.n, self.sharding = n, sharding
+        samples = [ds[i] for i in rows]
         self.arrays = tuple(
             torch.from_numpy(np.stack([s[k] for s in samples])).to(dev)
             for k in range(len(samples[0])))
 
     def __len__(self):
-        return self.arrays[0].shape[0]
+        return self.n
 
     def loader(self, batch_size: int, shuffle: bool = True, seed: int = 0):
         """Yield tuples of device tensors [batch_size, ...] in
         ``batch_iterator``'s order, a last partial batch dropped."""
+        if self.sharding is not None:
+            raise ValueError("a sharded DeviceCachedDataset is read by the "
+                             "epoch scan (run_epoch_scan)")
         n = len(self)
         order = epoch_order(n, shuffle, seed)
         dev = self.arrays[0].device
         for start in range(0, n - batch_size + 1, batch_size):
             idx = to_device((order[start:start + batch_size],), dev)[0]
             yield tuple(a.index_select(0, idx) for a in self.arrays)
+
+
+def sharded_batch(arrays, idx, group):
+    """This rank's slice of a global batch from a ``DeviceCachedDataset``
+    sharded over ``group``: ``arrays`` are the rank's block of rows,
+    ``idx`` [B] the batch's global rows (on every rank). Each rank writes
+    the rows it holds into a [B, ...] buffer of additive identities (-0.0
+    for a float: -0.0 + x is x for every x, +0.0 and -0.0 included; 0 for
+    an int), one sum all-reduce an array fills in the rest, and the rank
+    keeps ``[rank::size]``: bit for bit ``batch_iterator``'s slice."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    rows = arrays[0].shape[0]
+    local = idx - rank * rows
+    mine = (local >= 0) & (local < rows)
+    local = torch.where(mine, local, 0)
+    out = []
+    for a in arrays:
+        got = a.index_select(0, local)
+        empty = torch.full_like(got, -0.0 if got.is_floating_point() else 0)
+        full = torch.where(mine.view(-1, *[1] * (a.dim() - 1)), got, empty)
+        dist.all_reduce(full, group=group)
+        out.append(full[rank::size].contiguous())
+    return tuple(out)

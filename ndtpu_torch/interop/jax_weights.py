@@ -62,13 +62,14 @@ def _copy(dst: torch.Tensor, src):
     of its own type, and such a tensor takes only a leaf of its type, so
     no value is widened or rounded on the way: bfloat16 parameters and
     Adam moments come from bfloat16 leaves, float32 ones from float32
-    leaves."""
+    leaves, and a float64 tensor takes a float64 leaf as it is."""
     src = np.asarray(src)
     half = _HALF.get(src.dtype.name)
     if (half or torch.float32) != dst.dtype and (
             half is not None or dst.dtype in _HALF.values()):
         raise TypeError(f"a {src.dtype.name} leaf for a {dst.dtype} tensor")
-    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    wide = np.float64 if dst.dtype == torch.float64 else np.float32
+    src = torch.from_numpy(np.array(src, dtype=wide))
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(src.shape)} != {tuple(dst.shape)}")
     dst.copy_(src)

@@ -20,13 +20,24 @@ weight, bias and running statistics are held in ``param_dtype``, and the
 running statistics are updated in the statistics' type and then cast to
 it (norm.py:69-76).
 
-``F.batch_norm`` is not used: it rounds differently, and the port is held
-to the JAX module's arithmetic.
+Under a data group (``parallel/collectives.py``) the train-mode
+statistics are the global batch's, as ``jnp.mean`` over a batch-sharded
+input gives them under a mesh (norm.py:20-23): the two-pass form on the
+global batch, with the row count and each pass's sums all-reduced by
+``all_reduce_sum`` (gradients flow back through both sums to every
+rank), and the global count in the unbiased running variance. Without a
+group the module computes the single-process expressions above.
+
+``F.batch_norm`` and ``nn.SyncBatchNorm`` are not used: they round
+differently, and the port is held to the JAX module's arithmetic.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ndtpu_torch.parallel.collectives import all_reduce_sum
+from ndtpu_torch.parallel.mesh import data_group
 
 MOMENTUM = 0.9  # decay of the running statistics (the JAX module's momentum)
 
@@ -54,12 +65,16 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.maximum((xf - mean).square().mean(axes),
-                                torch.zeros_like(mean))
-            with torch.no_grad():
+            if data_group() is not None:
+                mean, var, bessel = _global_stats(xf, axes)
+            else:
+                mean = xf.mean(axes)
+                var = torch.maximum((xf - mean).square().mean(axes),
+                                    torch.zeros_like(mean))
                 n = x.numel() // x.shape[-1]
-                unbiased = var * (n / max(n - 1, 1))
+                bessel = n / max(n - 1, 1)
+            with torch.no_grad():
+                unbiased = var * bessel
                 m, pdt = MOMENTUM, self.running_mean.dtype
                 self.running_mean.copy_(
                     (m * self.running_mean + (1.0 - m) * mean).to(pdt))
@@ -68,3 +83,16 @@ class BatchNorm(nn.Module):
         y = (xf - mean) / torch.sqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y if self.dtype is None else y.to(self.dtype)
+
+
+def _global_stats(xf, axes):
+    """(mean, clamped biased variance, n / max(n - 1, 1)) over the global
+    batch's n rows: one all-reduce of [the sum of x, the rows], then one of
+    the sum of (x - mean)^2."""
+    rows = xf.numel() // xf.shape[-1]
+    first = all_reduce_sum(torch.cat([xf.sum(axes), xf.new_full((1,), rows)]))
+    n = first[-1].detach()
+    mean = first[:-1] / n
+    var = all_reduce_sum((xf - mean).square().sum(axes)) / n
+    return (mean, torch.maximum(var, torch.zeros_like(mean)),
+            n / torch.clamp(n - 1, min=1))

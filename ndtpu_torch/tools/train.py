@@ -30,9 +30,18 @@ uploads each split to the device once (``DeviceCachedDataset``; with
 batches there; with ``--epoch_scan`` (the default) each epoch is
 ``make_epoch_scan``'s: on the card a CUDA graph of the step, replayed
 once a step, with no host sync inside the epoch.
+
+``--coordinator host:port --num_processes P --process_id i`` run the
+trainer as rank i of P processes (gloo with ``--device cpu``, NCCL on
+the card ``i % device_count`` otherwise), each loading its slice of every
+global batch of ``--batch_size`` clouds and computing the global-batch
+step (``train/loop.py``); with ``--device_cache`` each rank holds a block
+of every split and ``--epoch_scan`` is required, as in the JAX trainer.
+Only rank 0 logs, prints and writes checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import sys
@@ -50,6 +59,13 @@ from ndtpu_torch.data.loader import (
 from ndtpu_torch.data.classification import ModelNetCls
 from ndtpu_torch.data.synthetic import SyntheticCls
 from ndtpu_torch.models.ndtnet import NDTNetClassification, NDTNetSegmentation
+from ndtpu_torch.parallel.mesh import (
+    data_group,
+    data_rank,
+    data_size,
+    init_distributed,
+    release_group,
+)
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.tools._common import make_dataset
 from ndtpu_torch.train.config import TrainConfig
@@ -164,12 +180,37 @@ def make_cls_dataset(cfg, split, seed):
     return _OneHotCls(ds, cfg.n_classes)
 
 
+@contextlib.contextmanager
+def distributed(cfg):
+    """The trainer's data group, from its flags (``init_distributed``,
+    before any device is touched; ``cfg.device`` becomes this rank's
+    device), released at exit. A single process makes none."""
+    cfg.device = str(init_distributed(cfg.coordinator, cfg.num_processes,
+                                      cfg.process_id, cfg.device))
+    try:
+        yield
+    finally:
+        if cfg.num_processes > 1:
+            release_group()
+
+
 def main(argv=None):
     """Train as the flags say; returns the final TrainState."""
     cfg = TrainConfig.from_args(argv)
+    with distributed(cfg):
+        return train(cfg)
+
+
+def train(cfg):
+    """``main`` inside its data group."""
     classify = "classification" in cfg.task
     if classify and cfg.streaming:
         raise SystemExit("--streaming supports the segmentation task only")
+    sharding = data_group() if data_size() > 1 else None
+    if cfg.device_cache and sharding is not None and not cfg.epoch_scan:
+        # without the epoch scan nothing assembles a global batch from
+        # the ranks' blocks
+        raise SystemExit("multi-process --device_cache requires --epoch_scan")
     sets = []
     for seed, split in enumerate(("train", "val", "test")):
         if classify:
@@ -182,7 +223,7 @@ def main(argv=None):
         if cfg.streaming:
             ds = precompute_voxel_sizes(ds, cfg)
         if cfg.device_cache:
-            ds = DeviceCachedDataset(ds, cfg.device)
+            ds = DeviceCachedDataset(ds, cfg.device, sharding)
         elif cfg.cache_dataset:
             ds = CachedDataset(ds)
         sets.append(ds)
@@ -199,7 +240,7 @@ def main(argv=None):
                                **cfg.dtypes)
     step_fn, eval_fn = make_step(cfg.n_desired_nds, cfg.n_classes, cfg.search)
     if cfg.device_cache and cfg.epoch_scan:
-        epochs = scan_epochs(cfg, step_fn, eval_fn, train_set)
+        epochs = scan_epochs(cfg, step_fn, eval_fn, train_set, sharding)
     else:
         epochs = per_step_epochs(cfg, step_fn, eval_fn, train_set)
     return fit(cfg, state, *epochs, val_set, test_set, "ndtnet",
@@ -209,13 +250,15 @@ def main(argv=None):
 def per_step_epochs(cfg, step_fn, eval_fn, train_set):
     """(train_epoch(state, seed), eval_epoch(state, dataset)) of the
     per-step loop (``run_epoch``) over batches from host memory
-    (``batch_iterator`` + ``prefetch_to_device``) or, for a
-    ``DeviceCachedDataset``, gathered on the device (its ``loader``)."""
+    (``batch_iterator`` + ``prefetch_to_device``; this rank's slice of
+    each global batch) or, for a ``DeviceCachedDataset``, gathered on the
+    device (its ``loader``)."""
     def loader(dataset, shuffle, seed=0):
         if isinstance(dataset, DeviceCachedDataset):
             return dataset.loader(cfg.batch_size, shuffle=shuffle, seed=seed)
         return prefetch_to_device(
-            batch_iterator(dataset, cfg.batch_size, shuffle=shuffle, seed=seed),
+            batch_iterator(dataset, cfg.batch_size, shuffle=shuffle, seed=seed,
+                           process_id=data_rank(), num_processes=data_size()),
             cfg.device)
 
     def train_epoch(state, seed):
@@ -227,12 +270,12 @@ def per_step_epochs(cfg, step_fn, eval_fn, train_set):
     return train_epoch, eval_epoch
 
 
-def scan_epochs(cfg, step_fn, eval_fn, train_set):
+def scan_epochs(cfg, step_fn, eval_fn, train_set, sharding=None):
     """(train_epoch, eval_epoch) as ``per_step_epochs`` gives them, each
     epoch a ``make_epoch_scan`` epoch over ``DeviceCachedDataset``s (a CUDA
-    graph of the step on the card)."""
-    train_scan = make_epoch_scan(step_fn, train=True)
-    eval_scan = make_epoch_scan(eval_fn, train=False)
+    graph of the step on the card), sharded over ``sharding`` if given."""
+    train_scan = make_epoch_scan(step_fn, True, sharding)
+    eval_scan = make_epoch_scan(eval_fn, False, sharding)
 
     def train_epoch(state, seed):
         return run_epoch_scan(train_scan, state, train_set, cfg.batch_size,
@@ -252,10 +295,13 @@ def fit(cfg, state, train_epoch, eval_epoch, val_set, test_set, prefix,
     seed), log, evaluate val (``eval_epoch(state, val_set)``), log, and
     every ``save_every`` epochs save
     ``<out_path>/<time>/<prefix>_<task>_<epoch>``; then evaluate the test
-    split unless it is None. Returns the final state."""
+    split unless it is None. Only rank 0 of a data group logs, prints and
+    saves. Returns the final state."""
+    host0 = data_rank() == 0
     if cfg.resume:
         state = restore_checkpoint(state, cfg.resume)
-        print(f"resumed from {cfg.resume} at step {state.step}")
+        if host0:
+            print(f"resumed from {cfg.resume} at step {state.step}")
     out_dir = os.path.join(
         cfg.out_path, datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
     logger = MetricLogger(
@@ -275,7 +321,7 @@ def fit(cfg, state, train_epoch, eval_epoch, val_set, test_set, prefix,
                    step=epoch + 1)
         logger.log({f"val_{k}": v for k, v in
                     eval_epoch(state, val_set).items()}, step=epoch + 1)
-        if (epoch + 1) % cfg.save_every == 0:
+        if (epoch + 1) % cfg.save_every == 0 and host0:
             path = save_checkpoint(state, os.path.join(
                 out_dir, f"{prefix}_{cfg.task}_{epoch + 1}"))
             print(f"saved checkpoint to {path}")
@@ -284,7 +330,8 @@ def fit(cfg, state, train_epoch, eval_epoch, val_set, test_set, prefix,
         logger.log({f"test_{k}": v for k, v in
                     eval_epoch(state, test_set).items()})
     logger.finish()
-    print("Done.")
+    if host0:
+        print("Done.")
     return state
 
 

@@ -18,7 +18,9 @@ split, as in the JAX trainer. Only the segmentation task has a multiscale
 trainer, and each step searches both voxel sizes (no ``--streaming``).
 ``--compute_dtype`` / ``--param_dtype`` set the model's types.
 ``--device_cache`` is refused: the JAX trainer accepts and ignores it,
-and the port ignores no flag.
+and the port ignores no flag. ``--coordinator host:port --num_processes
+P --process_id i`` run it as rank i of P processes, as
+``ndtpu_torch.tools.train``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import sys
 from ndtpu_torch.data.loader import CachedDataset
 from ndtpu_torch.models.ndtnetpp import NDTNetPPSegmentation
 from ndtpu_torch.tools._common import make_dataset
-from ndtpu_torch.tools.train import fit, per_step_epochs
+from ndtpu_torch.tools.train import distributed, fit, per_step_epochs
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import make_lr_schedule, make_multiscale_seg_step
 from ndtpu_torch.train.state import create_train_state
@@ -37,6 +39,12 @@ def main(argv=None):
     """Train as the flags say; returns the final TrainState."""
     cfg = TrainConfig.from_args(argv, n_desired_nds=8160, batch_size=4,
                                 feature_dim=1024)
+    with distributed(cfg):
+        return train(cfg)
+
+
+def train(cfg):
+    """``main`` inside its data group."""
     if "classification" in cfg.task:
         raise SystemExit("train_multiscale trains the segmentation task only")
     if cfg.streaming:

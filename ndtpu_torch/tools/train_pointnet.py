@@ -17,7 +17,9 @@ epochs, ``--resume <dir>`` to continue; a last eval runs the test split.
 The samples are not cached (as in the JAX trainer): a CARLA split draws
 new points every epoch. ``--compute_dtype`` / ``--param_dtype`` set the
 model's types. ``--device_cache`` is refused: the JAX trainer accepts
-and ignores it, and the port ignores no flag.
+and ignores it, and the port ignores no flag. ``--coordinator host:port --num_processes
+P --process_id i`` run it as rank i of P processes, as
+``ndtpu_torch.tools.train``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import sys
 
 from ndtpu_torch.models.pointnet import PointNetSegmentation
 from ndtpu_torch.tools._common import make_dataset
-from ndtpu_torch.tools.train import fit, per_step_epochs
+from ndtpu_torch.tools.train import distributed, fit, per_step_epochs
 from ndtpu_torch.train.config import TrainConfig
 from ndtpu_torch.train.loop import make_lr_schedule, make_pointnet_seg_step
 from ndtpu_torch.train.state import create_train_state
@@ -34,6 +36,12 @@ from ndtpu_torch.train.state import create_train_state
 def main(argv=None):
     """Train as the flags say; returns the final TrainState."""
     cfg = TrainConfig.from_args(argv, n_samples=4160, save_every=10)
+    with distributed(cfg):
+        return train(cfg)
+
+
+def train(cfg):
+    """``main`` inside its data group."""
     if "classification" in cfg.task:
         raise SystemExit("train_pointnet trains the segmentation task only")
     if cfg.streaming:

@@ -3,12 +3,16 @@ names and defaults, the same ``from_args`` (``--flag/--no-flag`` for
 bools, default overrides for another trainer's defaults), plus
 ``--device`` (default ``cuda``; the tests ask for ``cpu``).
 
-A flag the port cannot honour yet makes ``validate()`` raise with the
-title of the ROADMAP item that will port it; none is ignored quietly.
-``--compute_dtype`` / ``--param_dtype`` take float32, bfloat16 or
-float16; ``--device_cache`` keeps each split on the device and, with
+A flag the port cannot honour makes ``validate()`` raise; none is
+ignored quietly. ``--compute_dtype`` / ``--param_dtype`` take float32,
+bfloat16, float16 or float64 (the NDT preprocessing stays float32);
+``--device_cache`` keeps each split on the device and, with
 ``--epoch_scan`` (the default), runs each epoch as a CUDA graph of its
-step (``train/loop.py::make_epoch_scan``).
+step (``train/loop.py::make_epoch_scan``). ``--coordinator host:port
+--num_processes P --process_id i`` make the trainer rank i of a data
+group of P processes (``parallel/mesh.py::init_distributed``);
+``--data_axis`` names that group, as it names the JAX mesh's data axis,
+and has no other effect in the port.
 ``steps_per_epoch`` is read by no trainer, here or in the JAX package
 (the trainers derive it from the dataset).
 """
@@ -24,7 +28,7 @@ from ndtpu_torch.utils.device import resolve_device
 
 # the floating types that both jnp.dtype and torch name, by jnp.dtype's names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 def resolve_dtype(name: str, flag: str = "dtype") -> torch.dtype:
@@ -94,18 +98,10 @@ class TrainConfig:
             )
         for flag in ("compute_dtype", "param_dtype"):
             resolve_dtype(getattr(self, flag), f"--{flag}")
-        waits = [
-            (self.use_pallas != "auto",
-             "--use_pallas: the tensors' device picks the route (the CUDA "
-             "kernel on the card); only 'auto' is accepted"),
-            (self.num_processes > 1 or self.coordinator is not None
-             or self.data_axis != "data",
-             "multi-process / mesh flags wait for the ROADMAP item "
-             "\"Multi-process data parallelism\""),
-        ]
-        for bad, why in waits:
-            if bad:
-                raise NotImplementedError(why)
+        if self.use_pallas != "auto":
+            raise NotImplementedError(
+                "--use_pallas: the tensors' device picks the route (the CUDA "
+                "kernel on the card); only 'auto' is accepted")
         resolve_device(self.device)
         return self
 

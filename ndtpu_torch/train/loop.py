@@ -18,6 +18,19 @@ package's one-program epoch (a ``lax.scan`` over the steps, each gathering
 its batch from the device-resident dataset): on the card, a CUDA graph of
 one step replayed once a step; on the CPU, the same sync-free loop
 without a graph.
+
+Under a data group (``parallel/mesh.py::init_distributed``) each rank
+holds a slice of every global batch and the steps compute the JAX
+package's global-batch step, which XLA gets from a batch-sharded mesh:
+BatchNorm's statistics are the global batch's (``models/norm.py``); the
+loss is the global one, each rank back-propagating its share of the
+global sum over the global count (a masked mean is not the mean of the
+ranks' means: each cloud keeps its own number of NDs); the metrics are
+all-reduced; the gradients are summed over the ranks in one flat
+all-reduce before Adam, so every rank takes the same update. The
+preprocessing stays local to each rank, with no collective, as
+``_make_prep``'s ``shard_map`` pins it in the JAX package. Without a group
+the steps compute the single-process expressions.
 """
 from __future__ import annotations
 
@@ -25,7 +38,9 @@ import numpy as np
 import torch
 
 from ndtpu_torch.core.ndt import _fixed_rounds
-from ndtpu_torch.data.loader import epoch_order, to_device
+from ndtpu_torch.data.loader import epoch_order, sharded_batch, to_device
+from ndtpu_torch.parallel.collectives import all_reduce_gradients, all_reduce_sum
+from ndtpu_torch.parallel.mesh import data_group
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.train.state import make_capturable
 
@@ -45,30 +60,75 @@ def make_lr_schedule(base_lr: float, steps_per_epoch: int,
     return schedule
 
 
+def _cross_entropy(logits, onehot):
+    """Each row's softmax cross-entropy."""
+    return -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+
+
+def _hits(logits, onehot):
+    """1.0 where a row's argmax (the first maximum) matches the ground
+    truth's, else 0.0 (float32)."""
+    return (logits.argmax(-1) == onehot.argmax(-1)).to(torch.float32)
+
+
+def _masked_sum(rows, mask):
+    """(the sum of ``rows`` where ``mask`` keeps them, the kept rows)."""
+    return torch.where(mask, rows, 0.0).sum(), mask.sum()
+
+
 def cross_entropy_loss(logits, onehot, mask=None):
     """Mean softmax cross-entropy over the (optionally masked) rows; the
     masked mean divides by max(sum(mask), 1)."""
-    ce = -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    ce = _cross_entropy(logits, onehot)
     if mask is None:
         return ce.mean()
-    denom = torch.clamp(mask.sum(), min=1)
-    return torch.where(mask, ce, 0.0).sum() / denom
+    total, rows = _masked_sum(ce, mask)
+    return total / torch.clamp(rows, min=1)
 
 
 def accuracy(logits, onehot, mask=None):
     """Fraction of rows whose argmax (the first maximum) matches the
     ground truth's."""
-    hit = (logits.argmax(-1) == onehot.argmax(-1)).to(torch.float32)
+    hit = _hits(logits, onehot)
     if mask is None:
         return hit.mean()
-    denom = torch.clamp(mask.sum(), min=1)
-    return torch.where(mask, hit, 0.0).sum() / denom
+    total, rows = _masked_sum(hit, mask)
+    return total / torch.clamp(rows, min=1)
+
+
+def loss_and_metrics(logits, onehot, mask=None):
+    """(the loss to back-propagate, {"loss", "accuracy"} of the batch as
+    device scalars): ``cross_entropy_loss`` and ``accuracy``. Under a data
+    group the batch is the global one: one all-reduce of [kept rows, hits,
+    the sum of the loss] (detached, in at least float32), and each rank
+    back-propagates its own sum over the global row count, so that the
+    gradients summed over the ranks are the global loss's."""
+    if data_group() is None:
+        loss = cross_entropy_loss(logits, onehot, mask)
+        with torch.no_grad():
+            acc = accuracy(logits, onehot, mask)
+        return loss, {"loss": loss.detach(), "accuracy": acc}
+    ce = _cross_entropy(logits, onehot)
+    if mask is None:
+        mask = torch.ones(ce.shape, dtype=torch.bool, device=ce.device)
+    local, rows = _masked_sum(ce, mask)
+    wide = torch.promote_types(local.dtype, torch.float32)
+    with torch.no_grad():
+        hits = _masked_sum(_hits(logits, onehot), mask)[0]
+        rows, hits, total = all_reduce_sum(torch.stack(
+            [rows.to(wide), hits.to(wide), local.to(wide)]))
+        denom = torch.clamp(rows, min=1)
+    return local / denom.to(local.dtype), {
+        "loss": (total / denom).to(local.dtype),
+        "accuracy": (hits / denom).to(torch.float32)}
 
 
 def _update(state, loss):
-    """Backward of ``loss`` and one optimizer update."""
+    """Backward of ``loss``, the gradients summed over the data group (if
+    any), and one optimizer update."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_gradients(state.model.parameters())
     state.apply_gradients()
 
 
@@ -102,21 +162,16 @@ def make_ndt_seg_step(n_desired_nds: int, n_classes: int,
 
     def step(state, points, gt, *voxel_sizes):
         pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
-        model = state.model.train()
-        logits = model(pcl, covs, return_logits=True)
-        loss = cross_entropy_loss(logits, onehot, mask)
+        logits = state.model.train()(pcl, covs, return_logits=True)
+        loss, metrics = loss_and_metrics(logits, onehot, mask)
         _update(state, loss)
-        with torch.no_grad():
-            acc = accuracy(logits, onehot, mask)
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, metrics
 
     def eval_step(state, points, gt, *voxel_sizes):
         pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
-        model = state.model.eval()
         with torch.no_grad():
-            logits = model(pcl, covs, return_logits=True)
-            return {"loss": cross_entropy_loss(logits, onehot, mask),
-                    "accuracy": accuracy(logits, onehot, mask)}
+            logits = state.model.eval()(pcl, covs, return_logits=True)
+            return loss_and_metrics(logits, onehot, mask)[1]
 
     return step, eval_step
 
@@ -132,18 +187,15 @@ def make_classification_step(n_desired_nds: int, n_classes: int,
     def step(state, points, label_onehot):
         pcl, covs, _, _, _ = prep(points, None)
         logits = state.model.train()(pcl, covs, return_logits=True)
-        loss = cross_entropy_loss(logits, label_onehot)
+        loss, metrics = loss_and_metrics(logits, label_onehot)
         _update(state, loss)
-        with torch.no_grad():
-            acc = accuracy(logits, label_onehot)
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, metrics
 
     def eval_step(state, points, label_onehot):
         pcl, covs, _, _, _ = prep(points, None)
         with torch.no_grad():
             logits = state.model.eval()(pcl, covs, return_logits=True)
-            return {"loss": cross_entropy_loss(logits, label_onehot),
-                    "accuracy": accuracy(logits, label_onehot)}
+            return loss_and_metrics(logits, label_onehot)[1]
 
     return step, eval_step
 
@@ -165,17 +217,14 @@ def make_multiscale_seg_step(fine_res: int, coarse_res: int, n_classes: int,
 
     def step(state, points, gt):
         logits, gt1, m1 = forward(state.model.train(), points, gt)
-        loss = cross_entropy_loss(logits, gt1, m1)
+        loss, metrics = loss_and_metrics(logits, gt1, m1)
         _update(state, loss)
-        with torch.no_grad():
-            acc = accuracy(logits, gt1, m1)
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, metrics
 
     def eval_step(state, points, gt):
         with torch.no_grad():
             logits, gt1, m1 = forward(state.model.eval(), points, gt)
-            return {"loss": cross_entropy_loss(logits, gt1, m1),
-                    "accuracy": accuracy(logits, gt1, m1)}
+            return loss_and_metrics(logits, gt1, m1)[1]
 
     return step, eval_step
 
@@ -198,18 +247,15 @@ def make_pointnet_seg_step(n_classes: int | None = None):
     def step(state, points, gt):
         onehot = one_hot(gt)
         logits = state.model.train()(points, return_logits=True)
-        loss = cross_entropy_loss(logits, onehot)
+        loss, metrics = loss_and_metrics(logits, onehot)
         _update(state, loss)
-        with torch.no_grad():
-            acc = accuracy(logits, onehot)
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, metrics
 
     def eval_step(state, points, gt):
         onehot = one_hot(gt)
         with torch.no_grad():
             logits = state.model.eval()(points, return_logits=True)
-            return {"loss": cross_entropy_loss(logits, onehot),
-                    "accuracy": accuracy(logits, onehot)}
+            return loss_and_metrics(logits, onehot)[1]
 
     return step, eval_step
 
@@ -276,14 +322,26 @@ class EpochScan:
     state must not be replaced (restore a checkpoint before the first
     epoch). A kernel wrapper counts no launch at the capture, which
     launches nothing; a replay launches the captured kernels without
-    calling their wrappers."""
+    calling their wrappers.
 
-    def __init__(self, step_fn, train: bool):
-        self.step_fn, self.train = step_fn, train
+    With ``sharding`` (the data group) the arrays are this rank's block of
+    a ``DeviceCachedDataset`` sharded over it, ``order`` holds global rows,
+    and each step assembles this rank's slice of its global batch with one
+    all-reduce an array (``data/loader.py::sharded_batch``). Under a data
+    group the graph is captured in thread-local mode: NCCL's watchdog
+    thread queries the events of earlier collectives while this thread
+    captures, which global mode forbids; the warm-up steps have made the
+    communicator before the capture."""
+
+    def __init__(self, step_fn, train: bool, sharding=None):
+        self.step_fn, self.train, self.sharding = step_fn, train, sharding
         self.graphs = {}
 
     def run_step(self, state, idx, arrays):
-        batch = tuple(a.index_select(0, idx) for a in arrays)
+        if self.sharding is None:
+            batch = tuple(a.index_select(0, idx) for a in arrays)
+        else:
+            batch = sharded_batch(arrays, idx, self.sharding)
         with _fixed_rounds():
             if self.train:
                 return self.step_fn(state, *batch)[1]
@@ -336,7 +394,8 @@ class EpochScan:
             _restore(state, snap)
         total = {k: torch.zeros_like(v) for k, v in last.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        mode = "global" if data_group() is None else "thread_local"
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             last = self.run_step(state, idx, arrays)
             for k, v in last.items():
                 total[k].add_(v)
@@ -345,12 +404,13 @@ class EpochScan:
         return _Graph(graph, idx, last, total)
 
 
-def make_epoch_scan(step_fn, train: bool = True) -> EpochScan:
+def make_epoch_scan(step_fn, train: bool = True, sharding=None) -> EpochScan:
     """A whole epoch of ``step_fn`` (a train step of ``make_*_step`` when
     ``train``, else an eval step, whose state passes through) over a
     device-resident dataset: ``epoch(state, order [steps, B], *arrays) ->
-    (state, mean_metrics, last_metrics)`` (``EpochScan``)."""
-    return EpochScan(step_fn, train)
+    (state, mean_metrics, last_metrics)`` (``EpochScan``); ``sharding``
+    the data group over which the dataset is sharded, or None."""
+    return EpochScan(step_fn, train, sharding)
 
 
 def run_epoch_scan(epoch_fn, state, dataset, batch_size: int,
@@ -359,7 +419,11 @@ def run_epoch_scan(epoch_fn, state, dataset, batch_size: int,
     epoch's [steps, B] order is ``batch_iterator``'s (``epoch_order``, the
     partial batch dropped), copied to the device from pinned memory
     without a sync; the metrics are read once, at the end. Returns (state,
-    {last_*, mean_*} floats), ``run_epoch``'s format."""
+    {last_*, mean_*} floats), ``run_epoch``'s format. A sharded dataset
+    needs a scan made with its sharding, and every rank of it runs the
+    same epoch."""
+    if dataset.sharding is not epoch_fn.sharding:
+        raise ValueError("the epoch scan's sharding is not the dataset's")
     n = len(dataset)
     steps = n // batch_size
     order = epoch_order(n, shuffle, seed)[:steps * batch_size]

@@ -23,6 +23,12 @@ A checkpoint is a directory holding ``state.pt`` (``torch.save``): the
 model's ``state_dict``, the optimizer's ``state_dict`` and the step, the
 JAX checkpoint's params + batch_stats + opt_state + step. Tensors keep
 their types (a bfloat16 run saves and restores bfloat16).
+
+Under a data group every rank holds the same state:
+``create_train_state`` and ``restore_checkpoint`` end with
+``parallel/mesh.py::broadcast_state`` (rank 0's values on every rank, in
+place, the JAX trainers' ``replicate``), and each step's summed gradients
+keep the ranks equal. Only rank 0 writes checkpoints (the trainers).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Callable, Optional
 import torch
 
 from ndtpu_torch.models.ndtnet import NDTNetSegmentation
+from ndtpu_torch.parallel.mesh import broadcast_state
 from ndtpu_torch.serve import init_random_
 from ndtpu_torch.utils.device import capturing
 
@@ -111,14 +118,15 @@ def create_train_state(num_classes: int, feature_dim: int, schedule,
     ``device`` (the card unless the caller asks for the CPU), computing in
     ``dtype`` with parameters in ``param_dtype``, with random weights from
     ``seed`` (drawn on the CPU, so every device gets the same model), and
-    its optimizer (plain Adam; ``make_capturable`` for a CUDA graph)."""
+    its optimizer (plain Adam; ``make_capturable`` for a CUDA graph),
+    broadcast from rank 0 under a data group."""
     model = init_random_(model(num_classes=num_classes,
                                feature_dim=feature_dim, device=device,
                                dtype=dtype, param_dtype=param_dtype,
                                **model_kw), seed)
     optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
                                  betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model, optimizer, schedule)
+    return broadcast_state(TrainState(model, optimizer, schedule))
 
 
 def save_checkpoint(state: TrainState, path: str) -> str:
@@ -138,10 +146,11 @@ def restore_checkpoint(state: TrainState, path: str) -> TrainState:
     The file is read onto the CPU; ``load_state_dict`` moves each tensor
     to its parameter's device, and ``place_adam_steps`` then puts the Adam
     counters and the rate where the state's optimizer reads them,
-    whichever device wrote the checkpoint."""
+    whichever device wrote the checkpoint; under a data group rank 0's
+    values then go to every rank (``broadcast_state``)."""
     tree = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
                       map_location="cpu", weights_only=True)
     state.model.load_state_dict(tree["model"])
     state.optimizer.load_state_dict(tree["optimizer"])
     state.step = int(tree["step"])
-    return place_adam_steps(state)
+    return broadcast_state(place_adam_steps(state))

@@ -60,7 +60,7 @@ def test_importing_every_port_module_loads_no_jax():
 def test_entry_points_raise_without_a_card(monkeypatch):
     from ndtpu_torch.core.ndt import empty_state
     from ndtpu_torch.models import NDTNetSegmentation
-    from ndtpu_torch.parallel.mesh import make_point_group
+    from ndtpu_torch.parallel.mesh import make_group
     from ndtpu_torch.serve import SegmentationPipeline, entry
     from ndtpu_torch.utils.device import resolve_device
 
@@ -72,7 +72,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (entry, lambda: SegmentationPipeline(32, 4, 32),
                  lambda: NDTNetSegmentation(num_classes=4, feature_dim=32),
-                 lambda: empty_state(16), resolve_device, make_point_group,
+                 lambda: empty_state(16), resolve_device, make_group,
                  lambda: create_train_state(4, 32, make_lr_schedule(1e-3, 1)),
                  lambda: TrainConfig.from_args(["--device", "cuda"]),
                  lambda: train_main(["--epochs", "1", "--n_samples", "64"])):

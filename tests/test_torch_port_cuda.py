@@ -309,7 +309,7 @@ def test_giant_downsample_nccl_matches_gloo_cpu(cuda):
     pts = torch.from_numpy(pts.astype(np.float32))
     out = {}
     for dev in ("cuda", "cpu"):
-        group = mesh.make_point_group(dev)
+        group = mesh.make_group(dev)
         try:
             k1 = sm.fused_moments_sorted.launches
             k3 = sm.segment_tags_sorted.launches
@@ -319,7 +319,7 @@ def test_giant_downsample_nccl_matches_gloo_cpu(cuda):
                 assert sm.fused_moments_sorted.launches == k1 + 1
                 assert sm.segment_tags_sorted.launches >= k3 + 2
         finally:
-            mesh.release_point_group()
+            mesh.release_group()
     gpu, cpu = out["cuda"], out["cpu"]
     for name in ("voxel_size", "num_valid", "counts", "zyx", "converged"):
         assert torch.equal(getattr(gpu[4], name).cpu(), getattr(cpu[4], name)), name
@@ -527,6 +527,44 @@ def test_graph_replay_makes_no_host_sync_and_launches_k1_once(cuda):
     assert sm.fused_moments_sorted.launches - before == WARMUP_STEPS
     chip_smoke.graph_replays("test graph", scan, state, ds, 4)
     assert sm.fused_moments_sorted.launches - before == WARMUP_STEPS
+
+
+@pytest.mark.cuda
+def test_dp_step_on_a_one_rank_nccl_group_matches_the_step(cuda):
+    """The segmentation step at the small width without a group and as
+    the DP step on a one-rank NCCL group: all-reduces only, their bytes
+    within [param_bytes, 1.15 param_bytes + 4096], one K1 launch each,
+    the states compared (chip_smoke.dp_step_check)."""
+    got = chip_smoke.small_dp_step_check()
+    assert got["param_bytes"] <= got["bytes"]
+
+
+@pytest.mark.cuda
+def test_dp_graph_epoch_equals_the_dp_per_step_epoch(cuda):
+    """On a one-rank NCCL group, the graph epoch over a sharded
+    DeviceCachedDataset (each step's batch assembled by all-reduces
+    inside the graph) against the per-step DP epoch over the host loader,
+    bit for bit; replays with no host sync and one K1 kernel each
+    (chip_smoke.dp_graph_epoch)."""
+    ds, (step, _) = graph_setup()
+    host = list(zip(*(a.cpu().numpy() for a in ds.arrays)))
+    mesh.make_data_group("cuda")
+    try:
+        replays, times = chip_smoke.dp_graph_epoch(
+            "test DP", step, small_state, host, 4)
+    finally:
+        mesh.release_group()
+    assert replays > 2 and times["dp_gather_bytes_per_step"] == sum(
+        a[:4].numel() * a.element_size() for a in ds.arrays)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
+    """Two worker processes on the one card in a gloo group, float64, 2
+    steps at lr 0 and 2 at lr 1e-3, against one process on the whole
+    batch (chip_smoke.two_rank_gloo_check); rank 1 prints nothing."""
+    assert chip_smoke.two_rank_gloo_check() == 2 * len(chip_smoke.TR_LRS) * (
+        chip_smoke.TR_STEPS)
 
 
 # bf16 forwards, card against CPU (test_bf16_forwards_on_card_match_cpu):

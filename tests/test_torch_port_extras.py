@@ -524,8 +524,14 @@ def test_device_cached_loader_matches_batch_iterator(shuffle):
         for a, b, c in zip(g, w, o):
             np.testing.assert_array_equal(a.numpy(), b)
             np.testing.assert_array_equal(a.numpy(), c)
-    with pytest.raises(NotImplementedError, match="Multi-process data parallelism"):
-        DeviceCachedDataset(ds, "cpu", sharding="data")
+    from ndtpu_torch.parallel import mesh
+
+    group = mesh.make_data_group("cpu")
+    try:  # a sharded dataset is read only by the epoch scan
+        with pytest.raises(ValueError, match="epoch scan"):
+            next(DeviceCachedDataset(ds, "cpu", sharding=group).loader(3))
+    finally:
+        mesh.release_group()
 
 
 # ---- (g) the trainer CLI with --device_cache; config ----
@@ -575,7 +581,9 @@ def test_config_dtypes_and_refusals():
     assert cfg.epoch_scan is False
     assert TrainConfig.from_args(["--device", "cpu", "--param_dtype", "float16"]
                                  ).dtypes["param_dtype"] == torch.float16
-    for bad in ("bf16", "float64", "int32"):
+    assert TrainConfig.from_args(["--device", "cpu", "--compute_dtype",
+                                  "float64"]).dtypes["dtype"] == torch.float64
+    for bad in ("bf16", "complex64", "int32"):
         with pytest.raises(ValueError, match="--compute_dtype"):
             TrainConfig.from_args(["--device", "cpu", "--compute_dtype", bad])
     for main in (train_multiscale.main, train_pointnet.main):

@@ -42,6 +42,7 @@ from ndtpu_torch.core import moments as tm
 from ndtpu_torch.core import ndt as tn
 from ndtpu_torch.core import voxel as tvx
 from ndtpu_torch.parallel import mesh as tmesh
+from ndtpu_torch.parallel.collectives import Collectives
 from ndtpu_torch.parallel import point_sharded as tps
 from ndtpu_torch.ops import segment_moments as tsm
 
@@ -67,9 +68,9 @@ def cluster_cloud(seed, n_centers=40, per=26, n=1024, extent=6.0, scale=0.3):
 
 @pytest.fixture
 def gloo():
-    group = tmesh.make_point_group("cpu")
+    group = tmesh.make_group("cpu")
     yield group
-    tmesh.release_point_group()
+    tmesh.release_group()
 
 
 def one_device_mesh():
@@ -329,29 +330,20 @@ def test_collectives_of_one_downsample(gloo, monkeypatch):
     moves O(N) point data."""
     n_points, n_desired = 4096, 64
     k_max = tn.max_segments(n_desired)
-    calls, evaluations = [], []
-    gather, reduce = dist.all_gather, dist.all_reduce
+    evaluations = []
     count = tps.sharded_count_occupied
-
-    def counted_gather(parts, t, **kw):
-        calls.append(("all_gather", tuple(t.shape), t.element_size()))
-        return gather(parts, t, **kw)
-
-    def counted_reduce(t, **kw):
-        calls.append(("all_reduce", tuple(t.shape), t.element_size()))
-        return reduce(t, **kw)
 
     def counted_count(*a, **kw):
         evaluations.append(1)
         return count(*a, **kw)
 
-    monkeypatch.setattr(dist, "all_gather", counted_gather)
-    monkeypatch.setattr(dist, "all_reduce", counted_reduce)
     monkeypatch.setattr(tps, "sharded_count_occupied", counted_count)
     pts = (np.random.default_rng(0).normal(size=(n_points, 3), scale=10.0)
            .astype(np.float32))
-    tps.make_point_sharded_downsample(n_desired, group=gloo)(
-        torch.from_numpy(pts))
+    with Collectives() as coll:
+        tps.make_point_sharded_downsample(n_desired, group=gloo)(
+            torch.from_numpy(pts))
+    calls = [(c.op, c.shape, c.itemsize) for c in coll.log]
     e = len(evaluations)
     assert e >= 1
     assert sorted(calls) == sorted(
@@ -372,12 +364,12 @@ from ndtpu_torch.parallel.point_sharded import make_point_sharded_downsample
 
 init, rank, src, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
 pts = torch.from_numpy(np.load(src))
-group = mesh.make_point_group("cpu", init_method=init, world_size=2, rank=rank)
+group = mesh.make_group("cpu", init_method=init, world_size=2, rank=rank)
 try:
     pcl, covs, labels, m, st = make_point_sharded_downsample(24, group=group)(
         mesh.shard_points(pts, group))
 finally:
-    mesh.release_point_group()
+    mesh.release_group()
 np.savez(out, pcl=pcl.numpy(), covs=covs.numpy(), labels=labels.numpy(),
          mask=m.numpy(), voxel_size=st.voxel_size.numpy(),
          num_valid=st.num_valid.numpy(), counts=st.counts.numpy(),
@@ -416,4 +408,4 @@ def test_group_helpers(gloo):
     x = torch.arange(12).reshape(6, 2)
     assert torch.equal(tmesh.shard_points(x, gloo), x)
     with pytest.raises(RuntimeError):
-        tmesh.make_point_group("cpu")  # one default group at a time
+        tmesh.make_group("cpu")  # one default group at a time
