@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet,
-CARLA data, trainer-extras and data-parallel paths on one NVIDIA card and
-check them.
+CARLA data, trainer-extras, data-parallel and tool paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -129,6 +129,19 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the one card (NCCL takes one rank a card), 2 steps at lr 0 and 2 at lr
    1e-3 in float64 against one process on the whole batch.
 
+13. The tools (python -m ndtpu_torch.tools.*) at full width: the frame
+   stream (tools/stream.py: 16 frames of 70000 points -> 1000 NDs, probe
+   search, a full search every 8 frames, a seed-0 checkpoint of the
+   28-class segmentation model at feature_dim 768 colouring each frame)
+   in warm and in fixed mode, one K1 launch a frame, the steady ms a
+   frame, the band, the host syncs of a steady frame; the same stream
+   card == CPU at 4 x 8192 points; viz (90000 points -> 2080 NDs, 29
+   slots, reference search, pruned to 1000, a torch.profiler trace);
+   seg_viz (70000 -> 2080 NDs); export of the checkpoint, reloaded through
+   torch_weights, logits bit-identical on one request; the
+   hyperparameter search (2 trials x 1 epoch at its defaults). K1 is
+   held against its plain version on every shape these paths gave it.
+
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
 non-zero and prints no result.
@@ -176,7 +189,13 @@ from ndtpu_torch.parallel.collectives import Collectives
 from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.serve import SegmentationPipeline, init_random_
+from ndtpu_torch.interop.torch_weights import map_ndtnet_segmentation
+from ndtpu_torch.tools import export as export_cli
+from ndtpu_torch.tools import hyperparameter_search as hps_cli
+from ndtpu_torch.tools import seg_viz as seg_viz_cli
+from ndtpu_torch.tools import stream as stream_cli
 from ndtpu_torch.tools import train as train_cli
+from ndtpu_torch.tools import viz as viz_cli
 from ndtpu_torch.tools import train_multiscale as train_multiscale_cli
 from ndtpu_torch.tools import train_pointnet as train_pointnet_cli
 from ndtpu_torch.train import loop as train_loop
@@ -186,6 +205,8 @@ from ndtpu_torch.train.loop import (
     make_ndt_seg_step,
     make_pointnet_seg_step,
 )
+from ndtpu_torch.train import state as train_state
+from ndtpu_torch.train.loop import make_lr_schedule
 from ndtpu_torch.train.state import create_train_state, make_capturable
 from ndtpu_torch.core.ndt import _fixed_rounds
 from ndtpu_torch.data.loader import (
@@ -2821,6 +2842,227 @@ def dp_phase(graph_step_ms):
     return launches, times
 
 
+# ---- the tools: the frame stream, viz, seg_viz, export, the search ----
+
+TOOLS_OUT = "build/chip_smoke_tools"
+STREAM_FRAMES = 16                    # tools/stream.py's default
+STREAM_RESEARCH = 8                   # --research_every: frames 0 and 8 search
+VIZ_N, VIZ_M, VIZ_M1 = 90000, 2080, 1000  # the reference's Hz protocol
+VIZ_REPEATS = 3                       # tools/viz.py's default
+
+
+def quiet(main, argv):
+    """A tool's ``main(argv)`` in this process with its stdout and stderr
+    kept. Returns (what main returned, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = main(argv)
+    return result, out.getvalue(), err.getvalue()
+
+
+def stream_card_vs_cpu(n_frames=4, n_points=8192, m=256):
+    """``tools.stream`` with --mode fixed and the reference search (exact
+    on both devices) on the card and on the CPU: the same modes, kept
+    counts and voxel sizes frame by frame. Returns the card's frames."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        (_, frames), _, _ = quiet(stream_cli.main, [
+            "--device", dev, "--n_frames", str(n_frames), "--n_points",
+            str(n_points), "--n_desired_nds", str(m), "--mode", "fixed",
+            "--search", "reference", "--research_every", "2"])
+        runs[dev] = [(f["mode"], f["valid"], f["voxel_size"]) for f in frames]
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError(f"stream card {runs['cuda']} != CPU {runs['cpu']}")
+    return runs["cuda"]
+
+
+def export_round_trip(ckpt, n_classes, feature_dim, points, m, out):
+    """``tools.export`` of the segmentation checkpoint ``ckpt`` on the
+    card, the written state dict mapped back by ``torch_weights`` into a
+    fresh model on the card: its logits on one request (``points``
+    preprocessed to m NDs) bit-identical to the checkpoint's model's.
+    Returns the written state dict."""
+    tree, _, _ = quiet(export_cli.main, [
+        "--checkpoint", ckpt, "--n_classes", str(n_classes), "--feature_dim",
+        str(feature_dim), "--out", out])
+    if set(torch.load(out, weights_only=True)) != set(tree):
+        raise AssertionError("export: the written file is not the state dict")
+    original = create_train_state(n_classes, feature_dim,
+                                  make_lr_schedule(1e-3, 1))
+    train_state.restore_checkpoint(original, ckpt)
+    fresh = map_ndtnet_segmentation(tree, NDTNetSegmentation(
+        num_classes=n_classes, feature_dim=feature_dim))
+    pcl, covs, _, _, _ = ndt_preprocessing_with_state(m, points, None,
+                                                      n_classes, search="probe")
+    with torch.no_grad():
+        a = original.model.eval()(pcl, covs, return_logits=True)
+        b = fresh.eval()(pcl, covs, return_logits=True)
+    if not torch.equal(a, b):
+        raise AssertionError(f"export: reloaded logits differ by "
+                             f"{float((a - b).abs().max())}")
+    return tree
+
+
+def steady_frame(points, mode, size, model):
+    """One steady frame of ``mode`` as tools/stream.py runs it: (the host
+    syncs of the downsample, the num_valid readback, the model and its
+    argmax readback; device_share of the timed part, the downsample and
+    the readback)."""
+    def timed_part():
+        out, _ = stream_cli.downsample_frame(points, M, mode, size, "probe")
+        int(out[4].num_valid[0])
+        return out
+
+    def frame():
+        out = timed_part()
+        stream_cli.classify(model, out[0], out[1])
+
+    return count_syncs(frame), device_share(timed_part)
+
+
+def tools_phase():
+    """The tools at full width on the card: a seed-0 segmentation
+    checkpoint (C classes, feature_dim F) written by save_checkpoint; the
+    frame stream (STREAM_FRAMES frames of N points -> M NDs, probe search,
+    --research_every STREAM_RESEARCH) in warm and in fixed mode with the
+    checkpoint's model, one K1 launch a frame, every frame in band, the
+    host syncs of a steady frame; viz (VIZ_N points -> VIZ_M NDs, 29
+    slots, reference search, --target1 VIZ_M1, --trace); seg_viz (N ->
+    2080 at feature_dim F, the checkpoint's model); export of the
+    checkpoint reloaded through torch_weights (bit-identical logits on one
+    request); hyperparameter_search, 2 trials x 1 epoch at its defaults.
+    K1 is held against its plain version on every shape these paths gave
+    it. point_histogram (no card work) and parity_train (the reference's
+    model code is not in the repository) stay off the card: the CPU tests
+    run them. Returns (K1 launches of the paths, K1's max_abs_err,
+    timings)."""
+    t0 = time.perf_counter()
+    os.makedirs(TOOLS_OUT, exist_ok=True)
+    card_frames = stream_card_vs_cpu()
+    print(f"stream card == CPU (fixed, reference search, 4 x 8192 -> 256): "
+          f"{[(mode, n) for mode, n, _ in card_frames]}")
+    state = create_train_state(C, F, make_lr_schedule(1e-3, 1), seed=0)
+    ckpt = train_state.save_checkpoint(state, os.path.join(TOOLS_OUT, "ckpt"))
+    k1 = sm.fused_moments_sorted
+    for kernel in KERNELS:
+        kernel.launches = 0
+    times, launches = {}, 0
+    with K1Recorder() as rec:
+        for mode in ("warm", "fixed"):
+            before = k1.launches
+            (stats, frames), _, err = quiet(stream_cli.main, [
+                "--mode", mode, "--n_frames", str(STREAM_FRAMES),
+                "--n_points", str(N), "--n_desired_nds", str(M),
+                "--research_every", str(STREAM_RESEARCH), "--checkpoint",
+                ckpt])
+            n = k1.launches - before
+            launches += n
+            counts = [f["valid"] for f in frames]
+            searched = [i for i, f in enumerate(frames) if f["mode"] == "search"]
+            # the forced searches, and in fixed mode one after each frame
+            # that left the band (warm mode heals within the frame)
+            want = sorted({0, STREAM_RESEARCH} | {
+                i + 1 for i, f in enumerate(frames[:-1])
+                if mode == "fixed" and not f["in_band"]})
+            out_of_band = [i for i, f in enumerate(frames) if not f["in_band"]]
+            if n != STREAM_FRAMES or len(frames) != STREAM_FRAMES:
+                raise AssertionError(f"stream {mode}: {n} K1 launches for "
+                                     f"{len(frames)} frames")
+            if searched != want or (mode == "warm" and out_of_band):
+                raise AssertionError(f"stream {mode}: counts {counts}, "
+                                     f"searched frames {searched}\n{err}")
+            if f"{C} classes, feature_dim {F}" not in err:
+                raise AssertionError(f"stream {mode}: model not restored\n{err}")
+            pts = torch.from_numpy(list(stream_cli.synthetic_stream(
+                STREAM_FRAMES, N))[-1]).cuda()[None]
+            size = torch.tensor([frames[-2]["voxel_size"]], device=pts.device)
+            syncs, (kernels, busy, wall, top) = steady_frame(
+                pts, mode, size, state.model.eval())
+            times[f"stream_{mode}"] = {**stats, "host_syncs_per_frame": syncs,
+                                       "kernels_per_frame": kernels,
+                                       "device_busy_ms": busy,
+                                       "profiled_ms": wall}
+            print(f"stream --mode {mode} ({STREAM_FRAMES} x {N} -> {M}, "
+                  f"probe, C {C}, feature_dim {F}): steady "
+                  f"{stats['steady_ms_per_frame']} ms a frame "
+                  f"({stats['steady_hz']} Hz), mean "
+                  f"{stats['mean_ms_per_frame']} ms; {syncs} host syncs a "
+                  f"steady frame (downsample, readbacks, model); {n} K1 "
+                  f"launches; counts {counts}, out of [{M}, {int(1.2 * M)}]: "
+                  f"frames {out_of_band or 'none'}; searched frames {searched}")
+            print(f"stream --mode {mode} steady frame profile (downsample + "
+                  f"readback): {kernels} kernels, device busy {busy:.3f} ms "
+                  f"of {wall:.3f} ms (idle {1 - busy / wall:.1%}); most device "
+                  "time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+        before = k1.launches
+        trace = os.path.join(TOOLS_OUT, "viz_trace")
+        result, out, _ = quiet(viz_cli.main, [
+            "--n_points", str(VIZ_N), "--target", str(VIZ_M), "--target1",
+            str(VIZ_M1), "--out_dir", TOOLS_OUT, "--trace", trace])
+        n = k1.launches - before
+        launches += n
+        kept = int(result["downsampled"][3].sum())
+        kept1 = int(result["pruned"][3].sum())
+        with open(os.path.join(trace, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        if (n, kept, kept1) != (VIZ_REPEATS + 1, VIZ_M, VIZ_M1) or not kernels:
+            raise AssertionError(f"viz: {n} K1 launches, {kept} -> {kept1} "
+                                 f"NDs, {kernels} kernels traced")
+        times["viz"] = {"downsample_hz": 1 / result["downsample_s"],
+                        "prune_hz": 1 / result["prune_s"]}
+        print(f"viz ({VIZ_N} -> {VIZ_M} NDs, {C + 1} slots, reference search, "
+              f"prune to {VIZ_M1}): " + " ".join(out.split("\n")[:1])
+              + f"; {1 / result['downsample_s']:.2f} Hz downsample, "
+              f"{1 / result['prune_s']:.2f} Hz prune; {n} K1 launches "
+              f"(warm-up + {VIZ_REPEATS}); trace {kernels} kernel events")
+
+        before = k1.launches
+        (_, pred, kept), _, _ = quiet(seg_viz_cli.main, [
+            "--model_path", ckpt, "--n_samples", str(N), "--n_desired_nds",
+            str(TRAIN_M), "--n_classes", str(C), "--feature_dim", str(F),
+            "--out", os.path.join(TOOLS_OUT, "seg_viz.ply")])
+        n = k1.launches - before
+        launches += n
+        if (n, int(kept.sum())) != (1, TRAIN_M) or pred.max() > C:
+            raise AssertionError(f"seg_viz: {n} K1 launches, {kept.sum()} NDs")
+        print(f"seg_viz ({N} -> {TRAIN_M} NDs, feature_dim {F}): "
+              f"{np.bincount(pred[kept], minlength=C + 1).nonzero()[0].size} "
+              "classes predicted, one K1 launch")
+
+        before = k1.launches
+        export_round_trip(ckpt, C, F, torch.from_numpy(
+            make_batch(B, N, seed=4)).cuda(), M,
+            os.path.join(TOOLS_OUT, "export", "ndtnet_seg.pt"))
+        n = k1.launches - before
+        launches += n
+        print(f"export: {len(os.listdir(os.path.join(TOOLS_OUT, 'export')))} "
+              f"files, reloaded through torch_weights on the card: logits "
+              f"bit-identical on one request ({B} x {N} -> {M}); {n} K1 launch")
+
+        before = k1.launches
+        t1 = time.perf_counter()
+        (loss, params), out, err = quiet(hps_cli.main, ["--n_trials", "2",
+                                                        "--epochs", "1"])
+        n = k1.launches - before
+        launches += n
+        steps = sum(32 // p["batch_size"]
+                    for p in hps_cli.random_trials(0, 2))
+        if n != steps or not math.isfinite(loss) or "random search" not in err:
+            raise AssertionError(f"hyperparameter_search: {n} K1 launches for "
+                                 f"{steps} steps, loss {loss}\n{out}{err}")
+        print(f"hyperparameter_search (2 trials x 1 epoch, its defaults): "
+              f"best loss {loss:.6g} {params}; {n} K1 launches ({steps} "
+              f"steps); {time.perf_counter() - t1:.1f} s")
+    err_max = rec.check("tools")
+    print(f"tools: K1 {launches} launches; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, err_max, times
+
+
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp_worker"]:
         return dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -2846,14 +3088,17 @@ def main() -> int:
     carla_launches, carla_err, fps = carla_phase()
     extras_launches, extras_err, extras_times = extras_phase()
     dp_launches, dp_times = dp_phase(extras_times["graph_step_ms"])
-    # K1's launches on the nine main paths; its giant-, training- and
+    tools_launches, tools_err, tools_times = tools_phase()
+    # K1's launches on the ten main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
     k1["launches"] = (served + giant_launches + train_launches + cls_launches
                       + ms_launches + var_launches + pn_launches
-                      + carla_launches + extras_launches + dp_launches)
+                      + carla_launches + extras_launches + dp_launches
+                      + tools_launches)
     k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err,
-                            var_err, carla_err, extras_err)
+                            var_err, carla_err, extras_err, tools_err)
+    k1["tools"] = tools_times
     k1["graph"] = extras_times
     k1["dp"] = dp_times
     k1["giant"] = giant_times

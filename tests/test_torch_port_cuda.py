@@ -691,3 +691,31 @@ def test_bf16_step_on_card_matches_cpu(cuda):
     """One bfloat16 segmentation step on the card and on the CPU
     (chip_smoke.bf16_step_check, which states the tolerances)."""
     chip_smoke.bf16_step_check()
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_cpu(cuda):
+    """tools.stream at 4 frames x 8192 points on the card and with
+    --device cpu: the same modes, kept counts and voxel sizes
+    (chip_smoke.stream_card_vs_cpu: fixed mode, the exact reference
+    search)."""
+    frames = chip_smoke.stream_card_vs_cpu(n_frames=4, n_points=8192, m=256)
+    assert [mode for mode, _, _ in frames] == ["search", "fixed"] * 2
+
+
+@pytest.mark.cuda
+def test_export_round_trip_on_card(cuda, tmp_path):
+    """tools.export of a small segmentation checkpoint, reloaded through
+    torch_weights on the card: bit-identical logits on one request
+    (chip_smoke.export_round_trip)."""
+    from ndtpu_torch.train.loop import make_lr_schedule
+    from ndtpu_torch.train.state import save_checkpoint
+
+    state = create_train_state(4, 32, make_lr_schedule(1e-3, 1), seed=1)
+    ckpt = save_checkpoint(state, str(tmp_path / "ckpt"))
+    points = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 2048, 3)).astype(np.float32)).to(cuda)
+    tree = chip_smoke.export_round_trip(ckpt, 4, 32, points, 48,
+                                        str(tmp_path / "out" / "seg.pt"))
+    assert tree["conv4.weight"].shape == (5, 128, 1)
+    assert (tmp_path / "out" / "seg_backbone.pt").exists()
