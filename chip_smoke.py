@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet,
-CARLA data, trainer-extras, data-parallel and tool paths on one NVIDIA card
-and check them.
+CARLA data, trainer-extras, data-parallel, tool, multi-device entry and
+measurement-script paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -141,6 +141,25 @@ Phases, each of which ends the script with a non-zero exit on failure:
    torch_weights, logits bit-identical on one request; the
    hyperparameter search (2 trials x 1 epoch at its defaults). K1 is
    held against its plain version on every shape these paths gave it.
+14. The multi-device entry (serve.dryrun_multichip): one rank on
+   a one-rank NCCL group in this process (B 2 x N 128 -> M 12, 4
+   classes, feature_dim 32): the DP segmentation step held to the
+   single-process step, in float64 within the JAX bound and in float32
+   within the bound or the rounding band the entry measures, the
+   NDT-Net++ step, cloud 0's point-sharded moments at voxel size 1.0
+   (counts sum to 128); the JAX entry's line; 11 K1 and 1 K3 launches,
+   each held against its plain version on the path's shapes. With more than one card, also
+   dryrun_multichip(device_count); with one, NCCL across cards is
+   unmeasured.
+15. The measurement scripts (python -m ndtpu_torch.scripts.*), each main
+   once, each JSON line printed: stage_timing at the canonical batch (16
+   x 70000 -> 1000, 29 slots), M 2080 and the giant cloud (one NCCL
+   rank); seed_hit_rate and probe_seed_validate on 4 clouds a
+   distribution, card == CPU; collectives at one NCCL rank (66
+   all-reduces, 1.0069 x the parameter bytes, as the dp phase's step);
+   model_timing with flat and fold in f32 and bf16; the kernel_micro KL
+   and sort modes; the three prep_micro modes. K1 and K3 are held
+   against their plain versions on every shape these paths gave them.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -188,7 +207,17 @@ from ndtpu_torch.parallel import mesh
 from ndtpu_torch.parallel.collectives import Collectives
 from ndtpu_torch.parallel import point_sharded as ps
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
-from ndtpu_torch.serve import SegmentationPipeline, init_random_
+from ndtpu_torch.scripts import (
+    collectives as collectives_script,
+    kernel_micro,
+    model_timing,
+    prep_micro,
+    probe_seed_validate,
+    seed_hit_rate,
+    stage_timing,
+)
+from ndtpu_torch.serve import (JITTERS, SegmentationPipeline, dryrun_multichip,
+                               init_random_)
 from ndtpu_torch.interop.torch_weights import map_ndtnet_segmentation
 from ndtpu_torch.tools import export as export_cli
 from ndtpu_torch.tools import hyperparameter_search as hps_cli
@@ -562,12 +591,12 @@ def sparse_tags(seg, n_tags, rng):
             for _ in range(n_tags)]
 
 
-def check_tags(seg, tags, label):
+def check_tags(seg, tags, label, k=GIANT_K):
     """K3 against its plain version on the card: exact (each kept segment
     holds one nonzero per column), and two launches bit-identical."""
-    a = sm.segment_tags_sorted(seg, tags, GIANT_K)
-    b = sm.segment_tags_sorted(seg, tags, GIANT_K)
-    ref = sm.segment_tags_sorted_plain(seg, tags, GIANT_K)
+    a = sm.segment_tags_sorted(seg, tags, k)
+    b = sm.segment_tags_sorted(seg, tags, k)
+    ref = sm.segment_tags_sorted_plain(seg, tags, k)
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"k3 {label}: two launches differ")
@@ -3062,6 +3091,146 @@ def tools_phase():
 
 
 
+# ---- the multi-device dry run and the measurement scripts ----
+
+SEED_ARGS = ["--clouds", "4"]          # the seed scripts' clouds, card and CPU
+DP_ALL_REDUCES, DP_BYTES_RATIO = 66, 1.0069  # the full-width DP step (PERF.md)
+
+
+class K3Recorder:
+    """Keeps, while active, the inputs of the first K3 launch of each
+    shape (points, table rows, tag columns) that the point-sharded path
+    makes, so that check_tags can hold K3 on the data a path gave it."""
+
+    def __enter__(self):
+        self.inputs = {}
+        self.saved = ps.segment_tags_sorted
+
+        def k3(seg, tags, k):
+            self.inputs.setdefault((tuple(seg.shape), k, len(tags)),
+                                   (seg, list(tags), k))
+            return self.saved(seg, tags, k)
+
+        ps.segment_tags_sorted = k3
+        return self
+
+    def __exit__(self, *exc):
+        ps.segment_tags_sorted = self.saved
+
+    def check(self, label):
+        if not self.inputs:
+            raise AssertionError(f"{label}: no K3 launch recorded")
+        for (shape, k, t), (seg, tags, _) in self.inputs.items():
+            check_tags(seg, tags, f"{label} ([{shape[0]}] -> {k} rows, {t} "
+                       "tags)", k)
+
+
+def multichip_phase():
+    """``dryrun_multichip(1)`` on the card (a one-rank NCCL group, in this
+    process): the JAX entry's line, its checks, and the K1 and K3
+    launches of its path (one K1 each: the single-process steps in
+    float64, float32 and the ``JITTERS`` float32 steps of the rounding
+    band, and the DP steps in float64 and float32; the multiscale step
+    two; the point-sharded moments one K1 and one K3), each kernel held against its plain version on every shape
+    the path gave it; ``dryrun_multichip(device_count)`` where the machine
+    has more cards. Returns (K1 launches, K3 launches, K1's
+    max_abs_err)."""
+    t0 = time.perf_counter()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    with K1Recorder() as r1, K3Recorder() as r3:
+        out = dryrun_multichip(1)
+    k1, k3 = sm.fused_moments_sorted.launches, sm.segment_tags_sorted.launches
+    if (k1, k3) != (7 + JITTERS, 1) or out["launches"] != [
+            {"fused_moments_sorted": k1, "segment_tags_sorted": k3}]:
+        raise AssertionError(f"dryrun_multichip(1): K1 {k1}, K3 {k3} launches "
+                             f"({out['launches']})")
+    if out["counts_sum"] != 128 or not math.isfinite(out["multiscale_loss"]):
+        raise AssertionError(f"dryrun_multichip(1): {out}")
+    print(f"dryrun_multichip(1): K1 {k1}, K3 {k3} launches")
+    err = r1.check("multichip")
+    r3.check("multichip")
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        more = dryrun_multichip(cards)
+        k1 += sum(r["fused_moments_sorted"] for r in more["launches"])
+        k3 += sum(r["segment_tags_sorted"] for r in more["launches"])
+    else:
+        print("dryrun_multichip: one card here, so NCCL across cards is "
+              "unmeasured")
+    print(f"multichip: phase took {time.perf_counter() - t0:.1f} s")
+    return k1, k3, err
+
+
+def card_vs_cpu_counts(main, argv):
+    """A counting script's JSON on the card and on the CPU, equal but for
+    the device's name (the counts are integers of occupancy). Returns
+    the card's."""
+    card = main(argv)
+    cpu = main(argv + ["--device", "cpu"])
+    same = {k: v for k, v in card.items() if k != "device"}
+    if same != {k: v for k, v in cpu.items() if k != "device"}:
+        raise AssertionError(f"{main.__module__}: card {card} != CPU {cpu}")
+    return card
+
+
+def scripts_phase():
+    """Each measurement script's main on the card at its full width, each
+    JSON line printed: stage_timing at the canonical batch (16 x 70000 ->
+    1000, 29 class slots), the training batch's M 2080 and the giant cloud
+    (1,048,576 -> 2080 on a one-rank NCCL group); model_timing, flat and
+    fold, in f32 and bf16; the kernel_micro KL and sort modes; the three
+    prep_micro modes; seed_hit_rate and probe_seed_validate on 4 clouds of
+    each distribution, card == CPU; collectives at one NCCL rank (the 66
+    all-reduces and 1.0069 x the parameter bytes of the dp phase's
+    step). K1 and K3 are held against their plain versions on the shapes
+    these paths gave them; every time must be finite and positive.
+    Returns (K1 launches, K3 launches, K1's max_abs_err)."""
+    t0 = time.perf_counter()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    lines = {}
+    with K1Recorder() as r1, K3Recorder() as r3:
+        lines["stage_canonical"] = stage_timing.main([])
+        lines["stage_training"] = stage_timing.main(["--n_desired_nds",
+                                                     str(TRAIN_M)])
+        lines["stage_giant"] = stage_timing.main(["--giant"])
+        card_vs_cpu_counts(seed_hit_rate.main, SEED_ARGS)
+        card_vs_cpu_counts(probe_seed_validate.main, SEED_ARGS)
+        dp, giant = collectives_script.main([])
+    k1, k3 = sm.fused_moments_sorted.launches, sm.segment_tags_sorted.launches
+    err = r1.check("scripts")
+    r3.check("scripts")
+    reduces = dp["collectives"].get("all_reduce", {})
+    ratio = reduces.get("bytes", 0) / dp["param_bytes"]
+    if (set(dp["collectives"]) != {"all_reduce"}
+            or reduces["count"] != DP_ALL_REDUCES
+            or round(ratio, 4) != DP_BYTES_RATIO
+            or dp["gradient_allreduce_bytes"] != dp["param_bytes"]):
+        raise AssertionError(f"collectives: {dp}")
+    if not giant["converged"] or giant["counts_sum"] != giant["points"]:
+        raise AssertionError(f"collectives: {giant}")
+    print(f"collectives (one NCCL rank): {reduces['count']} all-reduces, "
+          f"{ratio:.4f} x the parameter bytes, as the dp phase's step")
+    for dtype in ("f32", "bf16"):
+        lines[f"model_{dtype}"] = model_timing.main(
+            ["--variants", "flat,fold", "--dtype", dtype, "--inner", "20"])
+    for mode in kernel_micro.MODES:
+        lines[f"micro_{mode}"] = kernel_micro.main(["--mode", mode])
+    for mode in prep_micro.MODES:
+        lines[f"prep_{mode}"] = prep_micro.main(["--mode", mode])
+    for name, line in lines.items():
+        keys = (stage_timing.STAGES if name.startswith("stage") else
+                model_timing.STAGES + tuple(f"{p}_{v}" for p in (
+                    "backbone", "head") for v in ("flat", "fold"))
+                if name.startswith("model") else ("ms_per_batch",))
+        for key in keys:
+            if not (math.isfinite(line[key]) and line[key] > 0):
+                raise AssertionError(f"{name}: {key} = {line[key]!r}")
+    print(f"scripts: K1 {k1}, K3 {k3} launches; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return k1, k3, err
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--dp_worker"]:
@@ -3089,21 +3258,25 @@ def main() -> int:
     extras_launches, extras_err, extras_times = extras_phase()
     dp_launches, dp_times = dp_phase(extras_times["graph_step_ms"])
     tools_launches, tools_err, tools_times = tools_phase()
-    # K1's launches on the ten main paths; its giant-, training- and
+    mc_k1, mc_k3, mc_err = multichip_phase()
+    sc_k1, sc_k3, sc_err = scripts_phase()
+    # K1's launches on the main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
     k1["launches"] = (served + giant_launches + train_launches + cls_launches
                       + ms_launches + var_launches + pn_launches
                       + carla_launches + extras_launches + dp_launches
-                      + tools_launches)
+                      + tools_launches + mc_k1 + sc_k1)
     k1["max_abs_err"] = max(k1["max_abs_err"], giant_err, train_err, ms_err,
-                            var_err, carla_err, extras_err, tools_err)
+                            var_err, carla_err, extras_err, tools_err, mc_err,
+                            sc_err)
     k1["tools"] = tools_times
     k1["graph"] = extras_times
     k1["dp"] = dp_times
     k1["giant"] = giant_times
     k1["train"] = train_times
     k1["multiscale"] = ms_times
+    k3_k2[0]["launches"] += mc_k3 + sc_k3
     k2 = k3_k2[1]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}

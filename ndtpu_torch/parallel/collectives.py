@@ -82,8 +82,8 @@ class Call(NamedTuple):
 class Collectives:
     """Counts the ``torch.distributed`` collectives (all_gather,
     all_reduce, broadcast) called inside the ``with`` block: ``log`` holds
-    each ``Call``, ``calls`` counts them by (op, shape), ``nbytes`` sums
-    their bytes by op."""
+    each ``Call``, ``calls`` counts them by (op, shape), ``ops`` by op,
+    ``nbytes`` sums their bytes by op."""
 
     OPS = ("all_gather", "all_reduce", "broadcast")
 
@@ -119,6 +119,10 @@ class Collectives:
     @property
     def calls(self) -> collections.Counter:
         return collections.Counter((c.op, c.shape) for c in self.log)
+
+    @property
+    def ops(self) -> collections.Counter:
+        return collections.Counter(c.op for c in self.log)
 
     @property
     def nbytes(self) -> collections.Counter:

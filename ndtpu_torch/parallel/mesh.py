@@ -25,6 +25,8 @@ raises; nothing falls back to one process.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Optional
 
 import torch
@@ -67,6 +69,40 @@ def make_group(device="cuda", init_method=None, world_size: int = 1,
                             **kwargs)
     _data_group = None
     return dist.group.WORLD
+
+
+def run_ranks(fn, n: int, *args):
+    """Run ``fn(rank, n, init_method, *args)`` on ``n`` ranks and return
+    their results, rank 0's first. One rank runs in this process with no
+    ``init_method`` (a group of one over an in-process store); several
+    are spawned processes (``torch.multiprocessing``) that meet at a
+    FileStore in a temporary directory, and a rank that raises fails the
+    call (the others are ended). ``fn`` must be importable by its module
+    path and its results picklable. The results are read from their pipe
+    while the ranks run, so a rank whose result outgrows the pipe's
+    buffer is not left blocked in ``put``."""
+    if n == 1:
+        return [fn(0, 1, None, *args)]
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = mp.start_processes(
+            _queued, args=(fn, n, "file://" + os.path.join(tmp, "store"),
+                           args, queue),
+            nprocs=n, join=False, start_method="spawn")
+        done = False
+        while not done:
+            done = procs.join(timeout=0.1)  # raises when a rank fails
+            while not queue.empty():
+                rank, result = queue.get()
+                results[rank] = result
+    return [results[r] for r in range(n)]
+
+
+def _queued(rank, fn, n, init_method, args, queue):
+    queue.put((rank, fn(rank, n, init_method, *args)))
 
 
 def make_data_group(device="cuda", init_method=None, world_size: int = 1,

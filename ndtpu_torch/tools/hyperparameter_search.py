@@ -15,8 +15,9 @@ it a seeded random search of the same space runs, its trials drawn from
 gives the JAX tool's trials.
 
 Each trial trains a fresh ``NDTNetSegmentation`` (random weights from
-seed 0) on the synthetic set (or CarlaSeg under ``--train_path``) with the
-port's ``make_ndt_seg_step`` and the trainer's ``run_epoch`` (one readback
+seed 0, or the initial weights given to ``objective_factory``, e.g. the
+JAX tool's ``PRNGKey(0)`` variables) on the synthetic set (or CarlaSeg
+under ``--train_path``) with the port's ``make_ndt_seg_step`` and the trainer's ``run_epoch`` (one readback
 an epoch), at a constant rate: Adam is ``torch.optim.Adam(lr, betas=(0.9,
 0.999), eps=1e-8)``, SGD ``torch.optim.SGD(lr)`` without momentum, as
 ``optax.adam`` and ``optax.sgd``. One process on ``--device``.
@@ -45,9 +46,16 @@ def make_optimizer(name, params, lr):
     return torch.optim.SGD(params, lr=lr)
 
 
-def objective_factory(args):
+def objective_factory(args, init=None):
     """objective(optimizer_name, batch_size, lr) -> the last batch's train
-    loss after ``args.epochs`` epochs."""
+    loss after ``args.epochs`` epochs.
+
+    ``init`` gives every trial's initial weights: None draws them from
+    seed 0 (``init_random_``); a callable takes the fresh model and
+    returns the model to train, filled: ``lambda m:
+    load_jax_variables(m, variables)`` with the JAX tool's ``PRNGKey(0)``
+    variables trains from the JAX tool's weights, and it may cast the
+    model too (``m.double()``). The optimizer is made after it."""
     dev = resolve_device(args.device)
     train_set = make_dataset(args.n_classes, args.n_samples, args.train_path,
                              int_labels=True)
@@ -55,9 +63,9 @@ def objective_factory(args):
                                    args.search)
 
     def objective(optimizer_name: str, batch_size: int, lr: float) -> float:
-        model = init_random_(NDTNetSegmentation(
-            num_classes=args.n_classes, feature_dim=args.feature_dim,
-            device=dev), 0)
+        model = NDTNetSegmentation(num_classes=args.n_classes,
+                                   feature_dim=args.feature_dim, device=dev)
+        model = init_random_(model, 0) if init is None else init(model)
         state = TrainState(model, make_optimizer(optimizer_name,
                                                  model.parameters(), lr),
                            lambda _: lr)

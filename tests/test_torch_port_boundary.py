@@ -2,7 +2,8 @@
 
 ``ndtpu_torch`` imports torch and numpy, never jax, flax or ``ndtpu``
 (importing any ``ndtpu`` module runs ndtpu/__init__.py, which imports
-jax). Its entry points default to the card and raise where there is none,
+jax), nor the JAX side's scripts, tools, bench.py or __graft_entry__.py
+(the port keeps its own copy of anything it needs from them). Its entry points default to the card and raise where there is none,
 unless the caller asks for the CPU. chip_smoke.py and kernel_ab.py follow
 the same rules.
 """
@@ -17,7 +18,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ndtpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ndtpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ndtpu", "scripts", "tools",
+             "bench", "__graft_entry__")
+SCRIPTS = ("collectives", "kernel_micro", "model_timing", "parity_sweep",
+           "prep_micro", "probe_seed_validate", "seed_hit_rate", "stage_timing")
 
 
 def port_sources():
@@ -44,6 +48,9 @@ def test_importing_every_port_module_loads_no_jax():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
         for p in PORT.rglob("*.py")
     )
+    # the measurement scripts are port modules too: importing one runs
+    # nothing (its main is under the __main__ check)
+    assert {f"ndtpu_torch.scripts.{s}" for s in SCRIPTS} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -55,13 +62,17 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout == "0 []\n", proc.stdout  # no module printed
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from ndtpu_torch.core.ndt import empty_state
     from ndtpu_torch.models import NDTNetSegmentation
     from ndtpu_torch.parallel.mesh import make_group
-    from ndtpu_torch.serve import SegmentationPipeline, entry
+    from ndtpu_torch.scripts import (collectives, kernel_micro, model_timing,
+                                     prep_micro, probe_seed_validate,
+                                     seed_hit_rate, stage_timing)
+    from ndtpu_torch.serve import SegmentationPipeline, dryrun_multichip, entry
     from ndtpu_torch.utils.device import resolve_device
 
     from ndtpu_torch.tools.train import main as train_main
@@ -75,7 +86,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: empty_state(16), resolve_device, make_group,
                  lambda: create_train_state(4, 32, make_lr_schedule(1e-3, 1)),
                  lambda: TrainConfig.from_args(["--device", "cuda"]),
-                 lambda: train_main(["--epochs", "1", "--n_samples", "64"])):
+                 lambda: train_main(["--epochs", "1", "--n_samples", "64"]),
+                 lambda: dryrun_multichip(1),
+                 *[lambda m=m: m.main([]) for m in (
+                     collectives, kernel_micro, model_timing, prep_micro,
+                     probe_seed_validate, seed_hit_rate, stage_timing)]):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert resolve_device("cpu").type == "cpu"

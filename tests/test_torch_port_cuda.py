@@ -37,6 +37,9 @@ from ndtpu_torch.train.loop import (
 )
 from ndtpu_torch.train.state import create_train_state, make_capturable
 
+from ndtpu_torch.scripts import probe_seed_validate, seed_hit_rate
+from ndtpu_torch.serve import dryrun_multichip
+
 # the card checks shared with chip_smoke.py, at the repo's root
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -719,3 +722,25 @@ def test_export_round_trip_on_card(cuda, tmp_path):
                                         str(tmp_path / "out" / "seg.pt"))
     assert tree["conv4.weight"].shape == (5, 128, 1)
     assert (tmp_path / "out" / "seg_backbone.pt").exists()
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_a_one_rank_nccl_group(cuda):
+    """The multi-device entry on the card: the float64 DP loss at the
+    single-process loss, the float32 one within its rounding band, the
+    counts, and its K1 and K3 launches."""
+    out = dryrun_multichip(1)
+    tol = 1e-5 + 1e-5 * abs(out["single_loss"])
+    assert abs(out["loss"] - out["single_loss"]) <= tol
+    assert abs(out["loss_f32"] - out["single_loss_f32"]) <= max(
+        tol, out["band_f32"])
+    assert out["counts_sum"] == 128 and np.isfinite(out["multiscale_loss"])
+    assert out["launches"] == [{"fused_moments_sorted": 11,
+                                "segment_tags_sorted": 1}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script", [seed_hit_rate, probe_seed_validate])
+def test_seed_scripts_count_on_the_card_as_on_the_cpu(cuda, script):
+    chip_smoke.card_vs_cpu_counts(script.main, [
+        "--clouds", "4", "--n_samples", "4096", "--n_desired_nds", "256"])

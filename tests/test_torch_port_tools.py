@@ -21,7 +21,9 @@ JAX package's, each run in process through its ``main(argv)`` with
 - parity_train: tests/test_torch_port_parity_tool.py.
 - the utils: print_matrix's text, timed and profile_trace.
 """
+import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 import sys
@@ -411,6 +413,97 @@ def test_hyperparameter_search_optuna_branch(tmp_path, monkeypatch, capsys):
     assert np.isfinite(value)
     assert set(params) == {"optimizer", "batch_size", "learning_rate"}
 
+
+
+# the objective held to JAX's: 4 clouds of 512 points, so one epoch at batch
+# size 2 is two steps
+HPS_LOSS_ARGS = ["--n_samples", "512", "--n_desired_nds", "32",
+                 "--n_classes", "4", "--feature_dim", "32", "--epochs", "1"]
+
+
+@pytest.mark.parametrize("optimizer,lr", [("Adam", 1e-3), ("SGD", 3e-2)])
+def test_hyperparameter_objective_matches_jax_from_its_weights(
+        monkeypatch, optimizer, lr):
+    """One trial's ``last_loss`` (an epoch of two steps at batch size 2)
+    from JAX's ``PRNGKey(0)`` weights against JAX's objective on the same
+    synthetic set, within rtol 1e-6.
+
+    JAX's objective runs as it is (its optimizer, mesh, loader,
+    ``run_epoch`` and jitted step body) with its ``NDTNetSegmentation`` in
+    float64 (dtype and param_dtype, under ``jax.enable_x64``), its
+    ``create_train_state``'s init jitted, and one change: each step's
+    preprocessing (``_make_prep``'s function, float32,
+    x64 off) runs op by op before the jitted step, which receives its
+    outputs in place of the clouds. Under ``jit`` XLA's FMAs can flip a 2-
+    or 3-point voxel's KL and so the kept NDs (ROADMAP.md, faults). The
+    port's objective gets JAX's variables through ``init``
+    (``load_jax_variables`` into the model cast to float64).
+
+    The tolerance: the two frameworks' float32 preprocessing agrees to the
+    last ulps of the covariances (tests/test_golden.py's rtol 1e-6 and
+    1e-5), which moves the float64 loss after an SGD step by 2.4e-8 relative
+    (Adam's first update, lr * g / (|g| + eps), hides it: 7e-12). 1e-6 still catches a wrong optimizer, rate or loss: the step
+    moves the loss by more than 1e-3."""
+    from ndtpu.models import NDTNetSegmentation as JaxSegmentation
+    from ndtpu.train import loop as jloop
+    from ndtpu.train.state import TrainState as JaxTrainState
+    from ndtpu_torch.tools import _common
+
+    recorded = {}
+
+    def recording_cts(model, tx, rng, *inputs, init_kwargs=None):
+        """JAX's create_train_state with its init jitted (op by op it
+        takes seconds), keeping the variables for the port."""
+        variables = jax.jit(lambda key: model.init(
+            key, *inputs, **(init_kwargs or {})))(rng)
+        recorded["variables"] = jax.tree_util.tree_map(np.asarray,
+                                                       dict(variables))
+        return JaxTrainState(
+            step=jnp.zeros((), jnp.int32), params=variables["params"],
+            batch_stats=variables["batch_stats"],
+            opt_state=tx.init(variables["params"]), tx=tx,
+            apply_fn=model.apply)
+
+    jax_make_prep, jax_make_step = jloop._make_prep, jloop.make_ndt_seg_step
+
+    def make_step_prep_op_by_op(n, c, use_pallas, search, mesh, axis):
+        prep = jax_make_prep(n, c, use_pallas, search, None, axis)
+        step, _ = jax_make_step(n, c, use_pallas, search, mesh, axis)
+
+        def stepped(state, points, gt):
+            with jax.enable_x64(False), jax.disable_jit():
+                pre = prep(points, gt)
+            return step(state, pre, None)
+
+        return stepped, None
+
+    monkeypatch.setattr(jax_hps, "create_train_state", recording_cts)
+    monkeypatch.setattr(jax_hps, "NDTNetSegmentation", functools.partial(
+        JaxSegmentation, dtype=jnp.float64, param_dtype=jnp.float64))
+    # the jitted step's prep hands on what it is given: the op-by-op outputs
+    monkeypatch.setattr(jloop, "_make_prep", lambda *a: lambda pre, _: pre)
+    monkeypatch.setattr(jax_hps, "make_ndt_seg_step", make_step_prep_op_by_op)
+    monkeypatch.setattr(jax_hps, "make_dataset", functools.partial(
+        jax_hps.make_dataset, synthetic_length=4))
+    monkeypatch.setattr(hyperparameter_search, "make_dataset",
+                        functools.partial(_common.make_dataset,
+                                          synthetic_length=4))
+    jax_args = argparse.Namespace(
+        train_path=None, search="fast", use_pallas=False,
+        **{a[2:]: int(v) for a, v in zip(HPS_LOSS_ARGS[::2],
+                                         HPS_LOSS_ARGS[1::2])})
+    with jax.enable_x64(True):
+        want = jax_hps.objective_factory(jax_args)(optimizer, 2, lr)
+    port_args = argparse.Namespace(device="cpu", **vars(jax_args))
+    got = hyperparameter_search.objective_factory(
+        port_args, init=lambda m: load_jax_variables(
+            m.double(), recorded["variables"]))(optimizer, 2, lr)
+    assert np.isfinite(want)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    # the default init is unchanged: seed 0's weights, another loss
+    default = hyperparameter_search.objective_factory(port_args)(
+        optimizer, 2, lr)
+    assert np.isfinite(default) and default != got
 
 # ---- export ----
 
