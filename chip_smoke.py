@@ -157,9 +157,18 @@ Phases, each of which ends the script with a non-zero exit on failure:
    rank); seed_hit_rate and probe_seed_validate on 4 clouds a
    distribution, card == CPU; collectives at one NCCL rank (66
    all-reduces, 1.0069 x the parameter bytes, as the dp phase's step);
-   model_timing with flat and fold in f32 and bf16; the kernel_micro KL
-   and sort modes; the three prep_micro modes. K1 and K3 are held
-   against their plain versions on every shape these paths gave them.
+   model_timing with flat and fold in f32 and bf16; every kernel_micro
+   mode (K2, K1 and its cost probes P1 and P2 launched 97 times each by
+   their modes and by no other); the five prep_micro modes. K1 and K3
+   are held against their plain versions on every shape these paths gave
+   them, K2 on the pallas mode's ([16, 70000, 42], dense ranks over
+   1209). Then K1's cost split at that shape (3 tag columns) at 0, 1 and
+   29 class slots: P1 (``moments_empty``, the launch of K1's plan whose
+   body only zeroes the output) all zero, P2 (``moments_noflop``, K1's
+   streaming and row build) within its f32 summation bound of its plain
+   version, K1 within its bound, the three timed in turns, and the
+   figures empty, noflop - empty and moments - noflop printed beside K1's
+   bound and read floor.
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -201,6 +210,7 @@ from ndtpu_torch.models import (
     PointNetSegmentation,
 )
 from ndtpu_torch.ops import _build
+from ndtpu_torch.ops import moment_probes as mp
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.ops.fps import farthest_point_sampling
 from ndtpu_torch.parallel import mesh
@@ -255,6 +265,7 @@ N_TAGS = 3
 PEAK_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TIMED_ITERS = 20
+PAD_CYCLES = 1_000_000               # ~0.5 ms spin before each timed run
 LOGIT_ATOL, LOGIT_RTOL = 1e-3, 1e-4  # f32 matmuls on two devices
 
 GIANT_N, GIANT_M = 1_048_576, 2080   # bench.py --giant
@@ -341,12 +352,25 @@ def k1_error_bound(x):
                                         tags=x["tags"])
 
 
+def sparse_tag_columns(x):
+    """The output columns of x's tags that hold at most one nonzero a
+    segment (as the pipeline makes them): their sums are exact."""
+    if not x["tags"]:
+        return []
+    nonzero = torch.stack([t != 0 for t in x["tags"]], -1).float()
+    most = sm.segment_sum_sorted_plain(nonzero, x["seg"], x["k"])
+    most = most.reshape(-1, len(x["tags"])).amax(0)
+    return [13 + x["slots"] + t for t in range(len(x["tags"]))
+            if float(most[t]) <= 1]
+
+
 def check_kernel(x, label):
     """Kernel against its plain version on the card: counts, class
-    histogram and tags exact; every entry within twice the kernel's f32
-    summation bound (``fused_moments_error_bound``) of the plain version
-    evaluated in float64; two launches bit-identical. Returns the largest
-    absolute difference from the f32 plain version."""
+    histogram and the sparse tag columns exact (``sparse_tag_columns``);
+    every entry within twice the kernel's f32 summation bound
+    (``fused_moments_error_bound``) of the plain version evaluated in
+    float64; two launches bit-identical. Returns the largest absolute
+    difference from the f32 plain version."""
     a = run_kernel(x)
     b = run_kernel(x)
     ref = run_plain(x)
@@ -357,7 +381,8 @@ def check_kernel(x, label):
         raise AssertionError(f"{label}: two launches differ")
     if a.shape != ref.shape:
         raise AssertionError(f"{label}: shape {tuple(a.shape)} != {tuple(ref.shape)}")
-    exact = [0] + list(range(13, a.shape[-1]))
+    sparse = sparse_tag_columns(x)
+    exact = [0] + list(range(13, 13 + x["slots"])) + sparse
     if not torch.equal(a[..., exact], ref[..., exact]):
         raise AssertionError(f"{label}: counts/histogram/tags differ")
     excess = (a.double() - ref64).abs() - 2 * bound
@@ -365,31 +390,47 @@ def check_kernel(x, label):
         raise AssertionError(f"{label}: sums off by {float(excess.max())} "
                              "beyond the f32 summation bound")
     err = float((a - ref).abs().max())
-    print(f"k1 {label}: ok, max_abs_err {err:.3e}")
+    print(f"k1 {label}: ok, max_abs_err {err:.3e}, tags exact "
+          f"{len(sparse)}/{len(x['tags'])}")
     return err
 
 
-def time_ms(fn, iters=TIMED_ITERS, clean=False):
-    """Median device time of fn() in ms (CUDA events), with the 50 MB L2
-    overwritten before each run, as the caller finds it after the sort: by
-    writing 256 MB (the L2 left dirty), or with ``clean`` by reading them."""
+def times_ms(fns, iters=TIMED_ITERS, clean=False):
+    """Median device ms of each of ``fns`` (name -> function) between two
+    CUDA events, after 3 untimed calls each; the functions timed in turns
+    (forward, then backward order). Before each run the 50 MB L2 is
+    overwritten, as the caller finds it after the sort: by writing 256 MB
+    (the L2 left dirty), or with ``clean`` by reading them; then a spin of
+    PAD_CYCLES keeps the card busy while the host enqueues the timed call,
+    so the events time the card's work and not a wrapper's host time (a
+    kernel's wrapper can take the host longer than the flush takes the
+    card)."""
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(iters):
-        if clean:
-            flush.sum()
-        else:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(iters):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
+            torch.cuda._sleep(PAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_ms(fn, iters=TIMED_ITERS, clean=False):
+    """times_ms of fn alone."""
+    return times_ms({"fn": fn}, iters, clean)["fn"]
 
 
 def read_floor_ms(nbytes):
@@ -418,7 +459,7 @@ def k1_bound_ms(x):
     16 + T + slots products and sums a point."""
     n_points = int((x["seg"] < x["k"]).sum())
     batch = x["seg"].numel() // x["seg"].shape[-1]
-    cols_in = 5 + len(x["tags"]) + (1 if x["slots"] else 0)
+    cols_in = sm.staged_columns(x["slots"], len(x["tags"]))
     f_out = 13 + x["slots"] + len(x["tags"])
     return bound(n_points, 4 * cols_in, 4 * batch * x["k"] * f_out,
                  n_points * (6 + 10 + len(x["tags"]) + x["slots"]))
@@ -3162,6 +3203,206 @@ def multichip_phase():
     return k1, k3, err
 
 
+# kernel_micro's segment reductions and K1's cost probes at the JAX
+# script's defaults: B 16 x N 70000 features of 42 columns, dense ranks over
+# K 1209; the probes at untagged, the JAX default and the trainers' slots
+MICRO_B, MICRO_N, MICRO_F, MICRO_K = 16, 70000, 42, 1209
+PROBE_SLOTS = (0, 1, 29)
+PROBE_HEADLINE = 1                    # the JAX script's --slots default
+PROBE_SOURCE = "ndtpu_torch/csrc/segment_moments.cu"
+# the kernel each kernel_micro mode launches, and how often: one warm-up
+# and its default --inner 32 x --iters 3 runs (scripts/_timing.py)
+MICRO_KERNELS = {"pallas": sm.segment_sum_sorted, **kernel_micro.MOMENT_KERNELS}
+MICRO_RUNS = 1 + 32 * 3
+
+
+def probe_inputs(seg, slots, k, classes=False):
+    """kernel_micro's moments* inputs on the card for the [B, N] ranks
+    ``seg`` (numpy): its draws (xt, yt, zt normal from default_rng(2), v
+    ones, cls zeros, N_TAGS tag columns xt * 0.5), ``slots`` class slots
+    and k rows; with ``classes`` the classes drawn from [0, slots) by
+    default_rng(3) instead, so every slot column is summed."""
+    x = dict(kernel_micro.probe_inputs(seg, N_TAGS, "cuda"), slots=slots, k=k)
+    if classes:
+        x["cls"] = torch.from_numpy(np.random.default_rng(3).integers(
+            0, max(slots, 1), seg.shape).astype(np.int32)).cuda()
+    return x
+
+
+def run_probe(kernel, x, dtype=torch.float32):
+    """``kernel`` (P1, P2, K1 or a plain version) on K1's inputs x, the
+    float columns in ``dtype``."""
+    f = [x[k].to(dtype) for k in ("xt", "yt", "zt", "v")]
+    return kernel(*f, x["cls"], x["seg"], x["k"], x["slots"],
+                  tags=[t.to(dtype) for t in x["tags"]])
+
+
+def poisoned(kernel, x):
+    """run_probe(kernel, x) after a NaN tensor of the output's size was
+    freed: the caching allocator hands its block to the output, so an entry
+    the kernel leaves unwritten shows as NaN."""
+    f = sm.N_MOMENTS + x["slots"] + len(x["tags"])
+    junk = torch.full(tuple(x["seg"].shape[:-1]) + (x["k"], f), float("nan"),
+                      device="cuda")
+    del junk
+    return run_probe(kernel, x)
+
+
+def check_probes(x, label):
+    """P1 and P2 on the card against their plain versions, and K1 (the
+    moments mode) against its: P1's output (on a poisoned block) all zero
+    of K1's shape; P2 bit-identical over two launches, its count and class
+    columns exact, every entry within P2's f32 summation bound
+    (``moment_probes.moments_noflop_error_bound``: (chunk / 128 + blocks +
+    10) u sum|terms|) of the plain version in float64, so the rows past 7
+    exactly 0; K1 by check_kernel with its tag columns (xt * 0.5, dense)
+    held to its bound. Returns (P2's largest absolute difference from its
+    f32 plain version, K1's)."""
+    shape = tuple(x["seg"].shape[:-1]) + (
+        x["k"], sm.N_MOMENTS + x["slots"] + len(x["tags"]))
+    empty = poisoned(mp.moments_empty, x)
+    torch.cuda.synchronize()
+    if tuple(empty.shape) != shape or bool(empty.ne(0).any()):
+        raise AssertionError(f"P1 {label}: not zeros of {shape}")
+    a = poisoned(mp.moments_noflop, x)
+    b = run_probe(mp.moments_noflop, x)
+    ref = run_probe(mp.moments_noflop_plain, x)
+    ref64 = run_probe(mp.moments_noflop_plain, x, torch.float64)
+    bound = run_probe(mp.moments_noflop_error_bound, x)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"P2 {label}: two launches differ")
+    if tuple(a.shape) != shape:
+        raise AssertionError(f"P2 {label}: shape {tuple(a.shape)} != {shape}")
+    exact = [0] + list(range(13, 13 + x["slots"]))
+    if not torch.equal(a[..., exact], ref[..., exact]):
+        raise AssertionError(f"P2 {label}: count/class columns differ")
+    excess = (a.double() - ref64).abs() - bound
+    if not bool((excess <= 0).all()):  # NaN fails too
+        raise AssertionError(f"P2 {label}: off by {float(excess.max())} "
+                             "beyond its f32 summation bound")
+    p2_err = float((a - ref).abs().max())
+    print(f"P2 {label}: ok, max_abs_err {p2_err:.3e}; P1: zeros")
+    return p2_err, check_kernel(x, f"{label} (moments mode)")
+
+
+def probe_bound(x, reads):
+    """A probe's bound at x: ``reads`` (P2: every point's columns; P1:
+    nothing) and the output written once. P2's operations: the 6
+    products, F sums and the slot compares a point."""
+    n_points = x["seg"].numel()
+    f = sm.N_MOMENTS + x["slots"] + len(x["tags"])
+    batch = n_points // x["seg"].shape[-1]
+    cols_in = sm.staged_columns(x["slots"], len(x["tags"]))
+    return bound(n_points if reads else 0, 4 * cols_in,
+                 4 * batch * x["k"] * f,
+                 n_points * (6 + f + x["slots"]) if reads else 0)
+
+
+def probe_split(x):
+    """P1, P2 and K1 timed at x (times_ms: in turns, the L2 overwritten
+    before each launch) with P1's and P2's plain versions,
+    bounds and read floors (P1: ``torch.zeros`` of its output; P2:
+    ``torch.sum`` of each of its columns timed as the kernels, and as many
+    bytes in one buffer) and K1's bound and read floor. Returns {"moments_empty": timing keys,
+    "moments_noflop": ..., "k1": {"ms", "bound_ms", "read_floor_ms"}}."""
+    shape = tuple(x["seg"].shape[:-1]) + (
+        x["k"], sm.N_MOMENTS + x["slots"] + len(x["tags"]))
+    cols = [x["seg"], x["xt"], x["yt"], x["zt"], x["v"], *x["tags"]]
+    cols += [x["cls"]] if x["slots"] else []
+    kernel_ms = times_ms({
+        "moments_empty": lambda: run_probe(mp.moments_empty, x),
+        "moments_noflop": lambda: run_probe(mp.moments_noflop, x),
+        "k1": lambda: run_kernel(x)})
+    zeros_ms = time_ms(lambda: torch.zeros(shape, device="cuda"))
+    out = {}
+    for kernel, plain, reads in ((mp.moments_empty, mp.moments_empty_plain,
+                                  False),
+                                 (mp.moments_noflop, mp.moments_noflop_plain,
+                                  True)):
+        bound_ms, bound_by, moved = probe_bound(x, reads)
+        t = {"ms": kernel_ms[kernel.__name__],
+             "plain_ms": time_ms(lambda: run_probe(plain, x)),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        if reads:
+            t["read_floor_ms"] = read_floor_ms(moved)
+            t["column_sums_ms"] = time_ms(lambda: [c.sum() for c in cols])
+            t["library_ms"] = None
+        else:
+            t["read_floor_ms"] = t["library_ms"] = zeros_ms
+        out[kernel.__name__] = t
+    k1_bound, _, k1_moved = k1_bound_ms(x)
+    out["k1"] = {"ms": kernel_ms["k1"], "bound_ms": k1_bound,
+                 "read_floor_ms": read_floor_ms(k1_moved)}
+    return out
+
+
+def probes_phase():
+    """K2 held to its plain version on the pallas mode's inputs (check_sum:
+    kernel_micro's [16, 70000, 42] features, dense ranks over K 1209); K1's
+    cost split at that shape (3 tag columns) at each of PROBE_SLOTS: P1,
+    P2 and K1 checked (check_probes) and timed (probe_split), and the three
+    figures printed: empty, noflop - empty, moments - noflop, beside K1's
+    bound and read floor. Returns (the largest P2, K1 and K2 max_abs_err,
+    {slots: probe_split})."""
+    _, feats, seg = kernel_micro.segment_inputs(MICRO_B, MICRO_N, MICRO_F,
+                                                MICRO_K)
+    k2_err = check_sum(torch.from_numpy(feats).cuda(),
+                       torch.from_numpy(seg).cuda(),
+                       f"pallas mode [{MICRO_B}, {MICRO_N}, {MICRO_F}] -> "
+                       f"{MICRO_K}", MICRO_K)
+    del feats
+    p2_err = k1_err = 0.0
+    split = {}
+    for slots in PROBE_SLOTS:
+        x = probe_inputs(seg, slots, MICRO_K)
+        errs = check_probes(x, f"canonical, slots={slots}")
+        p2_err, k1_err = max(p2_err, errs[0]), max(k1_err, errs[1])
+        t = split[slots] = probe_split(x)
+        empty = t["moments_empty"]["ms"]
+        noflop = t["moments_noflop"]["ms"]
+        print(f"K1 split, slots={slots} ([{MICRO_B}, {MICRO_N}] -> {MICRO_K} "
+              f"rows, {N_TAGS} tags): empty {empty:.4f} ms, noflop - empty "
+              f"{noflop - empty:.4f} ms, moments - noflop "
+              f"{t['k1']['ms'] - noflop:.4f} ms (moments {t['k1']['ms']:.4f}); "
+              f"K1 bound {t['k1']['bound_ms']:.4f} ms, read floor "
+              f"{t['k1']['read_floor_ms']:.4f} ms; P2 plain "
+              f"{t['moments_noflop']['plain_ms']:.4f}, column sums "
+              f"{t['moments_noflop']['column_sums_ms']:.4f} ms, P1 zeros "
+              f"{t['moments_empty']['library_ms']:.4f} ms")
+    return p2_err, k1_err, k2_err, split
+
+
+def probe_entries(p2_err, split, launches):
+    """The kernels-line entries of P1 and P2: the timing keys at
+    PROBE_HEADLINE slots, every slots value's under "slots"."""
+    out = []
+    for name, line, err in (("moments_empty", 147, 0.0),
+                            ("moments_noflop", 154, p2_err)):
+        out.append({
+            "name": name, "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": f"scripts/kernel_micro.py:{line}",
+            "launches": launches[name], "max_abs_err": err,
+            **split[PROBE_HEADLINE][name],
+            "slots": {str(s): split[s][name] for s in PROBE_SLOTS},
+        })
+    return out
+
+
+def micro_modes(lines):
+    """Each kernel_micro mode's main at its defaults (the JAX script's), its
+    JSON line into ``lines``: K2, K1, P2 and P1 each launched exactly
+    MICRO_RUNS times by its mode and by no other mode."""
+    for mode in kernel_micro.MODES:
+        before = {m: k.launches for m, k in MICRO_KERNELS.items()}
+        lines[f"micro_{mode}"] = kernel_micro.main(["--mode", mode])
+        got = {m: k.launches - before[m] for m, k in MICRO_KERNELS.items()}
+        want = {m: MICRO_RUNS if m == mode else 0 for m in MICRO_KERNELS}
+        if got != want:
+            raise AssertionError(f"kernel_micro {mode}: launches {got}, "
+                                 f"expected {want}")
+
+
 def card_vs_cpu_counts(main, argv):
     """A counting script's JSON on the card and on the CPU, equal but for
     the device's name (the counts are integers of occupancy). Returns
@@ -3179,15 +3420,19 @@ def scripts_phase():
     JSON line printed: stage_timing at the canonical batch (16 x 70000 ->
     1000, 29 class slots), the training batch's M 2080 and the giant cloud
     (1,048,576 -> 2080 on a one-rank NCCL group); model_timing, flat and
-    fold, in f32 and bf16; the kernel_micro KL and sort modes; the three
-    prep_micro modes; seed_hit_rate and probe_seed_validate on 4 clouds of
+    fold, in f32 and bf16; every kernel_micro mode; the five prep_micro
+    modes; seed_hit_rate and probe_seed_validate on 4 clouds of
     each distribution, card == CPU; collectives at one NCCL rank (the 66
     all-reduces and 1.0069 x the parameter bytes of the dp phase's
     step). K1 and K3 are held against their plain versions on the shapes
     these paths gave them; every time must be finite and positive.
-    Returns (K1 launches, K3 launches, K1's max_abs_err)."""
+    kernel_micro's modes each launch their kernel (K2 pallas, K1 moments,
+    P2 moments_noflop, P1 moments_empty) MICRO_RUNS times (micro_modes);
+    then K2 at the pallas mode's inputs and K1's cost split (probes_phase).
+    Returns (K1, K3, K2 launches, K1's and K2's max_abs_err, the P1 and P2
+    entries of the kernels line)."""
     t0 = time.perf_counter()
-    for kernel in KERNELS:
+    for kernel in KERNELS + tuple(MICRO_KERNELS.values()):
         kernel.launches = 0
     lines = {}
     with K1Recorder() as r1, K3Recorder() as r3:
@@ -3198,9 +3443,6 @@ def scripts_phase():
         card_vs_cpu_counts(seed_hit_rate.main, SEED_ARGS)
         card_vs_cpu_counts(probe_seed_validate.main, SEED_ARGS)
         dp, giant = collectives_script.main([])
-    k1, k3 = sm.fused_moments_sorted.launches, sm.segment_tags_sorted.launches
-    err = r1.check("scripts")
-    r3.check("scripts")
     reduces = dp["collectives"].get("all_reduce", {})
     ratio = reduces.get("bytes", 0) / dp["param_bytes"]
     if (set(dp["collectives"]) != {"all_reduce"}
@@ -3215,10 +3457,15 @@ def scripts_phase():
     for dtype in ("f32", "bf16"):
         lines[f"model_{dtype}"] = model_timing.main(
             ["--variants", "flat,fold", "--dtype", dtype, "--inner", "20"])
-    for mode in kernel_micro.MODES:
-        lines[f"micro_{mode}"] = kernel_micro.main(["--mode", mode])
+    micro_modes(lines)
     for mode in prep_micro.MODES:
         lines[f"prep_{mode}"] = prep_micro.main(["--mode", mode])
+    k1, k3 = sm.fused_moments_sorted.launches, sm.segment_tags_sorted.launches
+    k2 = sm.segment_sum_sorted.launches
+    launches = {k.__name__: k.launches for k in (mp.moments_empty,
+                                                 mp.moments_noflop)}
+    err = r1.check("scripts")
+    r3.check("scripts")
     for name, line in lines.items():
         keys = (stage_timing.STAGES if name.startswith("stage") else
                 model_timing.STAGES + tuple(f"{p}_{v}" for p in (
@@ -3227,9 +3474,12 @@ def scripts_phase():
         for key in keys:
             if not (math.isfinite(line[key]) and line[key] > 0):
                 raise AssertionError(f"{name}: {key} = {line[key]!r}")
-    print(f"scripts: K1 {k1}, K3 {k3} launches; phase took "
-          f"{time.perf_counter() - t0:.1f} s")
-    return k1, k3, err
+    p2_err, k1_err, k2_err, split = probes_phase()
+    print(f"scripts: K1 {k1}, K3 {k3}, K2 {k2}, P1 "
+          f"{launches['moments_empty']}, P2 {launches['moments_noflop']} "
+          f"launches; phase took {time.perf_counter() - t0:.1f} s")
+    return (k1, k3, k2, max(err, k1_err), k2_err,
+            probe_entries(p2_err, split, launches))
 
 
 def main() -> int:
@@ -3259,7 +3509,7 @@ def main() -> int:
     dp_launches, dp_times = dp_phase(extras_times["graph_step_ms"])
     tools_launches, tools_err, tools_times = tools_phase()
     mc_k1, mc_k3, mc_err = multichip_phase()
-    sc_k1, sc_k3, sc_err = scripts_phase()
+    sc_k1, sc_k3, sc_k2, sc_err, sc_k2_err, probes = scripts_phase()
     # K1's launches on the main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
@@ -3278,10 +3528,12 @@ def main() -> int:
     k1["multiscale"] = ms_times
     k3_k2[0]["launches"] += mc_k3 + sc_k3
     k2 = k3_k2[1]
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"])
+    k2["launches"] += sc_k2
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_canonical["max_abs_err"],
+                            sc_k2_err)
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}
     print(json.dumps({"not_a_tpu_kernel": fps}))
-    print(json.dumps({"kernels": [k1] + k3_k2}))
+    print(json.dumps({"kernels": [k1] + k3_k2 + probes}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

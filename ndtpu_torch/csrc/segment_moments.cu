@@ -5,6 +5,12 @@
 //   ndtpu_segment_tags     <- _tags_kernel    (entry segment_tags_sorted)
 //   ndtpu_segment_sum      <- _kernel         (entry segment_sum_sorted)
 //
+// and K1's two cost probes, ports of the probe bodies of the JAX
+// repository's scripts/kernel_micro.py (section "K1's cost probes"):
+//
+//   ndtpu_moments_empty    <- empty_body  (entry ops/moment_probes.py)
+//   ndtpu_moments_noflop   <- noflop_body
+//
 // Precondition (as for the TPU kernels): each cloud's ids are sorted
 // (non-decreasing; the pipeline gives dense ranks with unit steps, gaps are
 // allowed), so segment s is the contiguous run that starts at
@@ -576,6 +582,47 @@ __device__ __forceinline__ void run_in_registers(Op& op, const View& v, int g0,
 // again and the searches' few probes. The arithmetic (~25 f32 operations a
 // point) is far below the card's f32 rate.
 
+// K1's row build for point g of a staged view: adds its 10 moment products
+// and its tags into acc and tag_acc, and returns its validity w, which the
+// class columns take. The cost probe P2 (below) builds its rows with it too.
+__device__ __forceinline__ float add_moment_row(const ColumnView& v, int g,
+                                                int n_tags,
+                                                float (&acc)[kMoments - 3],
+                                                float (&tag_acc)[NDTPU_MAX_TAGS]) {
+  const float* stage = v.stage;
+  const float x = stage[v.off[kXt] + g], y = stage[v.off[kXt + 1] + g],
+              z = stage[v.off[kXt + 2] + g], w = stage[v.off[kV] + g];
+  acc[0] += w;
+  acc[1] += x;
+  acc[2] += y;
+  acc[3] += z;
+  acc[4] += x * x;
+  acc[5] += x * y;
+  acc[6] += x * z;
+  acc[7] += y * y;
+  acc[8] += y * z;
+  acc[9] += z * z;
+#pragma unroll
+  for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
+    if (t < n_tags) tag_acc[t] += stage[v.off[kTag0 + t] + g];
+  return w;
+}
+
+// The class of point g (slots > 0: the cls column is staged).
+__device__ __forceinline__ int class_of(const ColumnView& v, int g) {
+  return __float_as_int(v.stage[v.off[kCls] + g]);
+}
+
+// Output column of K1's moment sum j (v, x, y, z, xx, xy, xz, yy, yz, zz);
+// xy, xz and yz also go to their mirrors (mirror_column).
+__device__ __forceinline__ int moment_column(int j) {
+  return j < 7 ? j : j == 7 ? 8 : j == 8 ? 9 : 12;
+}
+
+__device__ __forceinline__ int mirror_column(int j) {
+  return j == 5 ? 7 : j == 6 ? 10 : j == 8 ? 11 : -1;
+}
+
 struct MomentsOp {
   float acc[kMoments - 3];  // v, x, y, z, xx, xy, xz, yy, yz, zz
   float tag_acc[NDTPU_MAX_TAGS];
@@ -598,24 +645,9 @@ struct MomentsOp {
   }
 
   __device__ __forceinline__ void add(const ColumnView& v, int g) {
-    const float* stage = v.stage;
-    const float x = stage[v.off[kXt] + g], y = stage[v.off[kXt + 1] + g],
-                z = stage[v.off[kXt + 2] + g], w = stage[v.off[kV] + g];
-    acc[0] += w;
-    acc[1] += x;
-    acc[2] += y;
-    acc[3] += z;
-    acc[4] += x * x;
-    acc[5] += x * y;
-    acc[6] += x * z;
-    acc[7] += y * y;
-    acc[8] += y * z;
-    acc[9] += z * z;
-#pragma unroll
-    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
-      if (t < n_tags) tag_acc[t] += stage[v.off[kTag0 + t] + g];
+    const float w = add_moment_row(v, g, n_tags, acc, tag_acc);
     if (slots > 0) {
-      const int c = __float_as_int(stage[v.off[kCls] + g]);
+      const int c = class_of(v, g);
       if (c >= 0 && c < slots) hist[c * 32 + (threadIdx.x & 31)] += w;
     }
   }
@@ -659,9 +691,8 @@ struct MomentsOp {
                  (static_cast<long long>(b) * rows.num_segments + s) * rows.f;
     if (j < kMoments - 3) {
       // v, x, y, z, xx, xy, xz, yy, yz, zz -> columns; xy, xz, yz twice
-      const int col = j < 7 ? j : j == 7 ? 8 : j == 8 ? 9 : 12;
-      row[col] = total;
-      if (j == 5 || j == 6 || j == 8) row[j == 5 ? 7 : j == 6 ? 10 : 11] = total;
+      row[moment_column(j)] = total;
+      if (mirror_column(j) >= 0) row[mirror_column(j)] = total;
     } else if (j < kMoments - 3 + n_tags) {
       row[kMoments + slots + j - (kMoments - 3)] = total;
     }
@@ -679,6 +710,174 @@ __global__ void __launch_bounds__(kRangeThreads) segment_moments_kernel(
   MomentsOp op{{}, {}, hist + (threadIdx.x >> 5) * slots * 32, slots, n_tags, rows};
   reduce_chunk(in, n, chunk, tile, smem,
                reinterpret_cast<int*>(hist + kRangeWarps * slots * 32), rows, op);
+}
+
+// ---- K1's cost probes (P1, P2) ----
+//
+// Ports of the two probe bodies of the JAX repository's
+// scripts/kernel_micro.py (empty_body :147, noflop_body :154, both launched
+// by probe_call :133 at K1's grid). With K1 they split K1's time: P1 is the
+// launch and grid floor, P2 adds the streaming of K1's columns and K1's row
+// build, and K1 adds the segmented reduce and the class histograms. Both
+// launch with K1's plan (range_plan of K1's staged columns and slots: the
+// same blocks, threads and dynamic shared memory), so occupancy matches.
+//
+// P1 (ndtpu_moments_empty): K1's launch whose body only zeroes the output
+// [B, K, F] (the TPU body zeroes it at grid step 0; here every block takes
+// a grid-stride share of it); it reads nothing.
+//
+// P2 (ndtpu_moments_noflop): each block streams its raw chunk [c0, c1) of
+// every column through shared memory as K1 does (ColumnStage, cp.async,
+// two stages), with no ownership, no searches and no run starts (so it
+// reads the bytes K1 reads, but for the point before each tile and the
+// searches' probes). Each thread builds K1's row of every point of its
+// tile with id >= 0 (add_moment_row; the class columns as v * (cls == c)
+// in registers, no histogram) and keeps the F column totals in registers.
+// A block then sums its threads' totals in a fixed order (a butterfly over
+// each warp's lanes, then the warps in turn) into its row of a [blocks, F]
+// scratch, and a second pass sums the blocks in order, writes the totals
+// into rows 0-7 of the flat [B K, F] output and zeroes the rest. No atomics,
+// bit-identical from launch to launch. Class slots are capped at
+// kProbeMaxSlots (registers); the repo's paths use at most 29.
+
+constexpr int kProbeMaxSlots = 32;
+constexpr int kProbeRows = 8;  // the TPU body's strip (_SUBLANE rows)
+
+__global__ void __launch_bounds__(kRangeThreads) moments_empty_kernel(
+    long long size, float* __restrict__ out) {
+  const long long blocks = static_cast<long long>(gridDim.x) * gridDim.y;
+  const long long block = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  for (long long i = block * kRangeThreads + threadIdx.x; i < size;
+       i += blocks * kRangeThreads)
+    out[i] = 0.0f;
+}
+
+// S: the class columns a thread keeps (0, 1 or kProbeMaxSlots, of which
+// the first slots are used).
+template <int S>
+struct NoflopSums {
+  float acc[kMoments - 3];
+  float tag_acc[NDTPU_MAX_TAGS];
+  float slot_acc[S > 0 ? S : 1];
+  int slots, n_tags;
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int j = 0; j < kMoments - 3; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t) tag_acc[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < S; ++c) slot_acc[c] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const ColumnView& v, int g) {
+    if (v.ids[g] < 0) return;  // the TPU body's mask seg >= 0
+    const float w = add_moment_row(v, g, n_tags, acc, tag_acc);
+    if constexpr (S > 0) {
+      const int c = class_of(v, g);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (s < slots) slot_acc[s] += c == s ? w : 0.0f;
+    }
+  }
+};
+
+// The sum of x over the warp's lanes, as lane 0 gets it (a fixed butterfly).
+__device__ __forceinline__ float warp_total(float x) {
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
+  return x;
+}
+
+template <int S>
+__global__ void __launch_bounds__(kRangeThreads) moments_noflop_kernel(
+    ColumnStage in, int n_tags, int n, int slots, int chunk, int tile,
+    float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  // value i of a thread: the 10 moment sums, the 8 tags, the S classes
+  constexpr int kValues = kMoments - 3 + NDTPU_MAX_TAGS + S;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = (n + chunk - 1) / chunk;
+  const int b = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x % chunks) * chunk;
+  const int c1 = min(c0 + chunk, n);
+  const long long base = static_cast<long long>(b) * n;
+  const int stage_floats = in.floats(tile);
+
+  NoflopSums<S> op;
+  op.slots = slots;
+  op.n_tags = n_tags;
+  op.reset();
+  const int tiles = (c1 - c0 + tile - 1) / tile;
+  in.issue(base, c0, min(c0 + tile, c1), tile, smem);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int start = c0 + t * tile;
+    const int end = min(start + tile, c1);
+    if (t + 1 < tiles)
+      in.issue(base, end, min(end + tile, c1), tile,
+               smem + ((t + 1) & 1) * stage_floats);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile t has landed for every thread
+    const auto view = in.view(smem + (t & 1) * stage_floats, base, start, tile);
+    for (int g = start + threadIdx.x; g < end; g += kRangeThreads) op.add(view, g);
+    __syncthreads();  // the stage may be overwritten
+  }
+  cp_async_wait<0>();
+
+  // the warps' totals [kRangeWarps][kValues] in the stages, which are free
+  float* warp_sums = smem;
+#pragma unroll
+  for (int i = 0; i < kValues; ++i) {
+    float x;
+    if (i < kMoments - 3)
+      x = op.acc[i];
+    else if (i < kMoments - 3 + NDTPU_MAX_TAGS)
+      x = op.tag_acc[i - (kMoments - 3)];
+    else
+      x = op.slot_acc[i - (kMoments - 3 + NDTPU_MAX_TAGS)];
+    const float total = warp_total(x);
+    if (lane == 0) warp_sums[warp * kValues + i] = total;
+  }
+  __syncthreads();
+  // column c of this block's row: value i summed over the warps in turn
+  const int f = kMoments + slots + n_tags;
+  for (int c = threadIdx.x; c < f; c += kRangeThreads) {
+    int i;
+    if (c < kMoments) {
+      i = 0;
+#pragma unroll
+      for (int j = 0; j < kMoments - 3; ++j)
+        if (moment_column(j) == c || mirror_column(j) == c) i = j;
+    } else if (c < kMoments + slots) {
+      i = kMoments - 3 + NDTPU_MAX_TAGS + (c - kMoments);
+    } else {
+      i = kMoments - 3 + (c - kMoments - slots);
+    }
+    float total = warp_sums[i];
+#pragma unroll
+    for (int w = 1; w < kRangeWarps; ++w) total += warp_sums[w * kValues + i];
+    partial[static_cast<long long>(blockIdx.x) * f + c] = total;
+  }
+}
+
+// P2's second pass: out[r, c] for the flat [rows, f] output is the sum of
+// partial[0 .. blocks) column c, in block order, for r < kProbeRows, else 0.
+__global__ void moments_noflop_finish(const float* __restrict__ partial,
+                                      int blocks, int f, long long rows,
+                                      float* __restrict__ out) {
+  const long long total = rows * f;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float x = 0.0f;
+    if (i < static_cast<long long>(kProbeRows) * f) {
+      const int c = static_cast<int>(i % f);
+      for (int k = 0; k < blocks; ++k) x += partial[static_cast<long long>(k) * f + c];
+    }
+    out[i] = x;
+  }
 }
 
 // ---- sparse per-segment tags (K3) ----
@@ -854,6 +1053,25 @@ int column_count(const Cols& cols) {
   return n;
 }
 
+// K1's staged columns of an entry's arguments (as ndtpu_segment_moments).
+ColumnStage moment_columns(const void* seg, const void* xt, const void* yt,
+                           const void* zt, const void* v, const void* cls,
+                           const void* const* tag_ptrs, int n_tags, int slots) {
+  ColumnStage in = {};
+  in.cols.p[kSeg] = static_cast<const float*>(seg);
+  const void* const xyzv[4] = {xt, yt, zt, v};
+  for (int c = 0; c < 4; ++c) in.cols.p[kXt + c] = static_cast<const float*>(xyzv[c]);
+  for (int t = 0; t < n_tags; ++t)
+    in.cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
+  if (slots > 0) in.cols.p[kCls] = static_cast<const float*>(cls);
+  return in;
+}
+
+bool probe_args_ok(int n_tags, int batch, int n, int num_segments, int slots) {
+  return n_tags >= 0 && n_tags <= NDTPU_MAX_TAGS && batch >= 0 && n >= 0 &&
+         num_segments >= 0 && slots >= 0 && slots <= kProbeMaxSlots;
+}
+
 void write_plan(const RangePlan& plan, long long* out) {
   out[0] = plan.chunk;
   out[1] = plan.tile;
@@ -873,17 +1091,67 @@ extern "C" int ndtpu_segment_moments(
   // nothing to sum, no grid: the wrapper returns zeros without a call
   if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
     return static_cast<int>(cudaSuccess);
-  ColumnStage in = {};
-  in.cols.p[kSeg] = static_cast<const float*>(seg);
-  const void* const xyzv[4] = {xt, yt, zt, v};
-  for (int c = 0; c < 4; ++c) in.cols.p[kXt + c] = static_cast<const float*>(xyzv[c]);
-  for (int t = 0; t < n_tags; ++t)
-    in.cols.p[kTag0 + t] = static_cast<const float*>(tag_ptrs[t]);
-  if (slots > 0) in.cols.p[kCls] = static_cast<const float*>(cls);
+  const ColumnStage in = moment_columns(seg, xt, yt, zt, v, cls, tag_ptrs,
+                                        n_tags, slots);
   const RangePlan plan = range_plan(batch, n, column_count(in.cols), slots, 0, 1);
   return launch_chunks(segment_moments_kernel, plan, stream, in, n_tags, n,
                        num_segments, slots, plan.chunk, plan.tile,
                        static_cast<float*>(out));
+}
+
+// P1: K1's launch (its plan, shared memory and grid) whose body zeroes out
+// [batch, num_segments, 13 + slots + n_tags]. The arguments are K1's.
+extern "C" int ndtpu_moments_empty(
+    const void* seg, const void* xt, const void* yt, const void* zt,
+    const void* v, const void* cls, const void* const* tag_ptrs, int n_tags,
+    int batch, int n, int num_segments, int slots, void* out, void* stream) {
+  if (!probe_args_ok(n_tags, batch, n, num_segments, slots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  const long long size =
+      static_cast<long long>(batch) * num_segments * (kMoments + slots + n_tags);
+  const ColumnStage in = moment_columns(seg, xt, yt, zt, v, cls, tag_ptrs,
+                                        n_tags, slots);
+  const RangePlan plan = range_plan(batch, n, column_count(in.cols), slots, 0, 1);
+  return launch_chunks(moments_empty_kernel, plan, stream, size,
+                       static_cast<float*>(out));
+}
+
+// P2: the column totals of every point with id >= 0 into rows 0-7 of the
+// flat [batch num_segments, 13 + slots + n_tags] out, the rest zeroed.
+// partial: the [blocks, F] scratch, blocks = K1's plan's (partial_rows must
+// equal it). The other arguments are K1's.
+extern "C" int ndtpu_moments_noflop(
+    const void* seg, const void* xt, const void* yt, const void* zt,
+    const void* v, const void* cls, const void* const* tag_ptrs, int n_tags,
+    int batch, int n, int num_segments, int slots, void* partial,
+    long long partial_rows, void* out, void* stream) {
+  if (!probe_args_ok(n_tags, batch, n, num_segments, slots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  const ColumnStage in = moment_columns(seg, xt, yt, zt, v, cls, tag_ptrs,
+                                        n_tags, slots);
+  const RangePlan plan = range_plan(batch, n, column_count(in.cols), slots, 0, 1);
+  if (partial_rows != plan.blocks) return static_cast<int>(cudaErrorInvalidValue);
+  float* sums = static_cast<float*>(partial);
+  const int err =
+      slots == 0 ? launch_chunks(moments_noflop_kernel<0>, plan, stream, in, n_tags,
+                                 n, slots, plan.chunk, plan.tile, sums)
+      : slots == 1 ? launch_chunks(moments_noflop_kernel<1>, plan, stream, in, n_tags,
+                                   n, slots, plan.chunk, plan.tile, sums)
+                   : launch_chunks(moments_noflop_kernel<kProbeMaxSlots>, plan, stream,
+                                   in, n_tags, n, slots, plan.chunk, plan.tile, sums);
+  if (err != 0) return err;
+  const int f = kMoments + slots + n_tags;
+  const long long rows = static_cast<long long>(batch) * num_segments;
+  const long long threads = 256, want = (rows * f + threads - 1) / threads;
+  const long long grid = want < kSMs * 4 ? want : kSMs * 4;
+  moments_noflop_finish<<<static_cast<unsigned>(grid), static_cast<unsigned>(threads),
+                          0, static_cast<cudaStream_t>(stream)>>>(
+      sums, static_cast<int>(plan.blocks), f, rows, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ndtpu_segment_tags(const void* seg, const void* const* tag_ptrs,

@@ -76,6 +76,12 @@ def range_plan(batch: int, n: int, n_cols: int, slots: int = 0,
     return chunk, tile, batch * groups * -(-n // chunk), smem
 
 
+def staged_columns(slots: int, n_tags: int) -> int:
+    """The columns K1 stages (``moment_columns`` in the source): seg, xt,
+    yt, zt, v, the tags, and cls when there are class slots."""
+    return 5 + n_tags + (1 if slots else 0)
+
+
 def unit_pitch(width: int):
     """Floats a staged row of ``width`` floats takes in 16-byte units: 4 x
     an odd number of units, at least those of the row after a lead of up
@@ -209,6 +215,12 @@ ENTRIES = {
     + [ctypes.POINTER(_PTR)]                          # tag column pointers
     + [_INT] * 5                                      # n_tags, batch, n, K, slots
     + [_PTR, _PTR],                                   # out, stream
+    # K1's cost probes (ops/moment_probes.py): K1's arguments, and P2's
+    # [blocks, F] scratch and its rows before out
+    "ndtpu_moments_empty": [_PTR] * 6 + [ctypes.POINTER(_PTR)] + [_INT] * 5
+    + [_PTR, _PTR],
+    "ndtpu_moments_noflop": [_PTR] * 6 + [ctypes.POINTER(_PTR)] + [_INT] * 5
+    + [_PTR, ctypes.c_longlong, _PTR, _PTR],
     "ndtpu_segment_tags": [_PTR, ctypes.POINTER(_PTR)]  # seg, tags
     + [_INT] * 3 + [_PTR, _PTR],                      # n_tags, n, K; out, stream
     "ndtpu_segment_sum": [_PTR, _PTR]                 # seg, feats
@@ -263,6 +275,45 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def check_moment_inputs(xt, yt, zt, v, cls, seg_ids, slots: int, tags):
+    """K1's input checks (``fused_moments_sorted``'s docstring): the
+    shapes, types, device and contiguity of every column. Returns the
+    device."""
+    shape = tuple(seg_ids.shape)
+    dev = seg_ids.device
+    if seg_ids.dim() not in (1, 2):
+        raise ValueError(f"seg_ids must be [N] or [B, N], got {shape}")
+    if len(tags) > MAX_TAGS:
+        raise ValueError(f"at most {MAX_TAGS} tag columns, got {len(tags)}")
+    if slots < 0:
+        raise ValueError("slots must be >= 0")
+    if slots and cls is None:
+        raise ValueError("cls is required when slots > 0")
+    _check("seg_ids", seg_ids, torch.int32, shape, dev)
+    for name, t in (("xt", xt), ("yt", yt), ("zt", zt), ("v", v)):
+        _check(name, t, torch.float32, shape, dev)
+    if slots:
+        _check("cls", cls, torch.int32, shape, dev)
+    for i, t in enumerate(tags):
+        _check(f"tags[{i}]", t, torch.float32, shape, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def column_pointers(xt, yt, zt, v, cls, seg_ids, slots: int, tags):
+    """K1's entry's first seven arguments: seg, xt, yt, zt, v, cls (None
+    without slots) and the array of tag column pointers. Under CUDA graph
+    capture (train/loop.py::make_epoch_scan) these pointers are copied into
+    the captured launch: every replay reads the same addresses, which the
+    graph's private memory pool keeps for it."""
+    tag_ptrs = (ctypes.c_void_p * max(1, len(tags)))(
+        *[t.data_ptr() for t in tags]
+    )
+    return (seg_ids.data_ptr(), xt.data_ptr(), yt.data_ptr(), zt.data_ptr(),
+            v.data_ptr(), cls.data_ptr() if slots else None, tag_ptrs)
+
+
 def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
     n = seg_ids.shape[-1]
     batch = math.prod(seg_ids.shape[:-1])
@@ -271,16 +322,9 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
     if n * batch * num_segments == 0:  # nothing to sum: no launch
         return torch.zeros(shape, dtype=torch.float32, device=seg_ids.device)
     out = torch.empty(shape, dtype=torch.float32, device=seg_ids.device)
-    # Under CUDA graph capture (train/loop.py::make_epoch_scan) these
-    # pointers are copied into the captured launch: every replay reads the
-    # same addresses, which the graph's private memory pool keeps for it.
-    tag_ptrs = (ctypes.c_void_p * max(1, len(tags)))(
-        *[t.data_ptr() for t in tags]
-    )
     stream = torch.cuda.current_stream(seg_ids.device).cuda_stream
     err = _entry("ndtpu_segment_moments")(
-        seg_ids.data_ptr(), xt.data_ptr(), yt.data_ptr(), zt.data_ptr(),
-        v.data_ptr(), cls.data_ptr() if slots else None, tag_ptrs,
+        *column_pointers(xt, yt, zt, v, cls, seg_ids, slots, tags),
         len(tags), batch, n, num_segments, slots, out.data_ptr(), stream,
     )
     _raise_on(err, "segment_moments")
@@ -306,28 +350,10 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
     the plain version on CPU tensors.
     """
     tags = tuple(tags) if tags else ()
-    shape = tuple(seg_ids.shape)
-    dev = seg_ids.device
-    if seg_ids.dim() not in (1, 2):
-        raise ValueError(f"seg_ids must be [N] or [B, N], got {shape}")
-    if len(tags) > MAX_TAGS:
-        raise ValueError(f"at most {MAX_TAGS} tag columns, got {len(tags)}")
-    if slots < 0:
-        raise ValueError("slots must be >= 0")
-    if slots and cls is None:
-        raise ValueError("cls is required when slots > 0")
-    _check("seg_ids", seg_ids, torch.int32, shape, dev)
-    for name, t in (("xt", xt), ("yt", yt), ("zt", zt), ("v", v)):
-        _check(name, t, torch.float32, shape, dev)
-    if slots:
-        _check("cls", cls, torch.int32, shape, dev)
-    for i, t in enumerate(tags):
-        _check(f"tags[{i}]", t, torch.float32, shape, dev)
+    dev = check_moment_inputs(xt, yt, zt, v, cls, seg_ids, slots, tags)
     if dev.type == "cpu":
         return fused_moments_sorted_plain(xt, yt, zt, v, cls, seg_ids,
                                           num_segments, slots, tags)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     return _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags)
 
 

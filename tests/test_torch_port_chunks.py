@@ -37,18 +37,13 @@ def chunk_segments(seg_ids, num_segments: int, chunk: int):
     return torch.stack([torch.cat([zero, lo]), torch.cat([lo, k])], dim=1)
 
 
-def k1_cols(slots, n_tags):
-    """Columns K1 stages per point: seg, xt, yt, zt, v, the tags, cls."""
-    return 5 + n_tags + (1 if slots else 0)
-
-
 @pytest.mark.parametrize("batch,n,n_cols,slots,f", [
-    (16, 70000, k1_cols(0, 3), 0, None),        # the canonical request
-    (1, 1 << 20, k1_cols(1, 2), 1, None),       # the giant moment pass
+    (16, 70000, sm.staged_columns(0, 3), 0, None),        # the canonical request
+    (1, 1 << 20, sm.staged_columns(1, 2), 1, None),       # the giant moment pass
     (1, 1 << 20, 1 + 4, 0, None),               # the giant pair keys (K3)
-    (16, 70000, k1_cols(29, 8), 29, None),      # the trainers' slots, 8 tags
-    (1, 1, k1_cols(29, 8), 29, None),
-    (4096, 1 << 19, k1_cols(0, 0), 0, None),    # 2**31 points
+    (16, 70000, sm.staged_columns(29, 8), 29, None),      # the trainers' slots, 8 tags
+    (1, 1, sm.staged_columns(29, 8), 29, None),
+    (4096, 1 << 19, sm.staged_columns(0, 0), 0, None),    # 2**31 points
     # K2: the giant oracle, the canonical batch with 28 and 29 class slots,
     # one column, the widest whole rows, column groups
     (1, 1 << 20, None, 0, 14), (16, 70000, None, 0, 41),

@@ -37,7 +37,7 @@ from ndtpu_torch.train.loop import (
 )
 from ndtpu_torch.train.state import create_train_state, make_capturable
 
-from ndtpu_torch.scripts import probe_seed_validate, seed_hit_rate
+from ndtpu_torch.scripts import kernel_micro, probe_seed_validate, seed_hit_rate
 from ndtpu_torch.serve import dryrun_multichip
 
 # the card checks shared with chip_smoke.py, at the repo's root
@@ -744,3 +744,34 @@ def test_dryrun_multichip_on_a_one_rank_nccl_group(cuda):
 def test_seed_scripts_count_on_the_card_as_on_the_cpu(cuda, script):
     chip_smoke.card_vs_cpu_counts(script.main, [
         "--clouds", "4", "--n_samples", "4096", "--n_desired_nds", "256"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [0, 1, 29])
+@pytest.mark.parametrize("b,n,k", [(16, 70000, 1209), (3, 20000, 500),
+                                   (1, 37, 30)])
+def test_moment_probes_and_moments_mode_match_plain(cuda, slots, b, n, k):
+    """K1's cost probes P1 and P2 against their plain versions, and K1 on
+    the moments mode's inputs against fused_moments_sorted_plain
+    (chip_smoke.check_probes), on kernel_micro's draws and with classes
+    drawn over every slot."""
+    _, _, seg = kernel_micro.segment_inputs(b, n, 42, k)
+    for classes in (False, True):
+        chip_smoke.check_probes(chip_smoke.probe_inputs(seg, slots, k, classes),
+                                f"[{b}, {n}] -> {k}, classes {classes}")
+
+
+@pytest.mark.cuda
+def test_kernel_micro_modes_launch_their_kernels(cuda):
+    """Each kernel_micro mode launches its kernel (K2, K1, P2, P1) once a
+    run and one warm-up, and no other mode launches one."""
+    for mode in kernel_micro.MODES:
+        before = {m: kern.launches
+                  for m, kern in chip_smoke.MICRO_KERNELS.items()}
+        kernel_micro.main(["--mode", mode, "--batch", "2", "--n", "4096",
+                           "--k", "64", "--k_max", "64", "--inner", "2",
+                           "--iters", "1"])
+        got = {m: kern.launches - before[m]
+               for m, kern in chip_smoke.MICRO_KERNELS.items()}
+        assert got == {m: 3 if m == mode else 0
+                       for m in chip_smoke.MICRO_KERNELS}, mode
