@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the ndtpu_torch serving, giant-cloud, training, sampler, PointNet,
 CARLA data, trainer-extras, data-parallel, tool, multi-device entry and
-measurement-script paths on one NVIDIA card and check them.
+measurement-script paths, and the bf16x3 branch and A/B modes, on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -169,6 +170,27 @@ Phases, each of which ends the script with a non-zero exit on failure:
    version, K1 within its bound, the three timed in turns, and the
    figures empty, noflop - empty and moments - noflop printed beside K1's
    bound and read floor.
+16. The bf16x3 branch (NDTPU_PALLAS_PRECISION=bf16x3) and the sampler's
+   A/B modes. K1's tensor-core kernel (``fused_moments_sorted_bf16x3``)
+   on the inputs K1 was timed at (the canonical batch, the giant moment
+   pass, the training batch and the multiscale fine batch, 29 slots
+   there) and K2's (``segment_sum_sorted_bf16x3``) at the giant oracle,
+   the canonical batch F 41 and the pallas mode's [16, 70000, 42]: two
+   launches bit-identical, within the branch's bound of the float64 sums,
+   K1's count, class and sparse tag columns equal to the bf16x3 plain
+   version, within both kernels' bounds of the f32 kernel's output, timed
+   in turns with the f32 kernel. Then, with the bf16x3 counts zeroed
+   just before, serving requests (16 x 70000 -> 1000, 28 classes,
+   feature_dim 768, probe) and eager segmentation train steps (the
+   training batch) under bf16x3, each in turns with the same under f32:
+   converged, the asked counts, finite, the state's integers equal to
+   f32's, means and covariances and the well-posed KLs within the stated
+   tolerances, the kept NDs within KEPT_DIFF_FRAC of f32's; and
+   kernel_micro's pallas mode (K2) under bf16x3. Last, one serving request
+   under each of NDTPU_EMIT=payload, NDTPU_KL_MODE=gather and
+   NDTPU_KL_MODE=gather NDTPU_KL_INV=argsort: bit-identical to the
+   default request, timed in turns with it. The variables are set and
+   restored around each call (``environ``).
 
 It prints the timings, a ``{"kernels": [...]}`` line, the card line again,
 and last ``{"ok": true, "device": {...}}``. Without a card it exits
@@ -491,9 +513,15 @@ def library_call(x):
     return call
 
 
+# the inputs each kernel was timed at, by (kernel, label): the bf16x3
+# phase times the branch on them
+TIMED = {}
+
+
 def k1_times(x, label):
     """K1's time at x beside its plain version, the segment_reduce
     yardstick and its bound: the timing keys of a kernels-line entry."""
+    TIMED["k1", label] = x
     ms = time_ms(lambda: run_kernel(x))
     plain_ms = time_ms(lambda: run_plain(x))
     library_ms = time_ms(library_call(x))
@@ -711,6 +739,7 @@ def reduce_times(name, label, call, plain, data, seg, k):
     [..., k, F] output its F floats, one add per column: the kernel also
     reads every kept point's id (4 B a point, not counted) for its run
     starts."""
+    TIMED[name, label] = (data, seg, k)
     lib = segment_reduce_call(data, seg, k)
     width = data.shape[-1]
     if not torch.equal(lib()[:, 0], plain().reshape(-1, width)[:, 0]):
@@ -1196,16 +1225,22 @@ def small_multiscale_step_check():
 class PrepRecorder:
     """Records, inside the trainer, each preprocessing call's converged
     flags and smallest kept-ND count as device tensors, read after the
-    run (no host sync added to the steps), and the ND count it asked for."""
+    run (no host sync added to the steps), and the ND count it asked for;
+    with ``keep``, each call's outputs too (``outs``)."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
 
     def __enter__(self):
-        self.calls = []
+        self.calls, self.outs = [], []
         self.saved = train_loop.ndt_preprocessing_with_state
 
         def prep(*args, **kw):
             out = self.saved(*args, **kw)
             self.calls.append((out[4].converged.all(), out[3].sum(-1).min(),
                                args[0]))
+            if self.keep:
+                self.outs.append(out)
             return out
 
         train_loop.ndt_preprocessing_with_state = prep
@@ -3482,6 +3517,408 @@ def scripts_phase():
             probe_entries(p2_err, split, launches))
 
 
+# ---- the bf16x3 branch of K1 and K2, and the sampler's A/B modes ----
+
+# K1's and K2's timed shapes (TIMED's labels); K2 also at the pallas mode's
+BF16X3_K1_SHAPES = ("canonical", "giant moment pass", "training batch",
+                    "multiscale fine batch")
+BF16X3_K2_SHAPES = ("giant", "canonical batch F=41")
+BF16X3_KERNELS = (sm.fused_moments_sorted_bf16x3, sm.segment_sum_sorted_bf16x3)
+AB_RUNS = 5                           # timed requests and steps a mode, in turns
+# the JAX package's bit-identical switches (NDTPU_KL_INV is read by the
+# gather mode only, as in JAX)
+MODES = (("NDTPU_EMIT=payload", {"NDTPU_EMIT": "payload"}),
+         ("NDTPU_KL_MODE=gather", {"NDTPU_KL_MODE": "gather"}),
+         ("NDTPU_KL_MODE=gather NDTPU_KL_INV=argsort",
+          {"NDTPU_KL_MODE": "gather", "NDTPU_KL_INV": "argsort"}))
+
+
+@contextlib.contextmanager
+def environ(values):
+    """The variables of ``values`` set inside (None: unset), each restored
+    after, so that no later phase sees them."""
+    saved = {k: os.environ.get(k) for k in values}
+
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(values)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+def bf16x3():
+    return environ({sm.PRECISION_VAR: "bf16x3"})
+
+
+def bf16x3_share(a, f32, f32_bound):
+    """The largest |a - f32| over twice the f32 kernel's bound (0 where
+    both are 0): how much of the f32 kernel's own tolerance the branch's
+    difference from it takes."""
+    d = (a.double() - f32.double()).abs()
+    return float(torch.where(d > 0, d / (2 * f32_bound), 0.0).max())
+
+
+def check_k1_bf16x3(x, label):
+    """K1's bf16x3 kernel on the card at x: two launches bit-identical;
+    the count, class and sparse tag columns (``sparse_tag_columns``) equal
+    to the bf16x3 plain version bit for bit; every entry within
+    ``fused_moments_bf16x3_error_bound`` of the plain version in float64,
+    and within that bound plus twice the f32 kernel's
+    (``fused_moments_error_bound``) of the f32 kernel's output. Returns
+    (the largest difference from the bf16x3 plain version, the share of
+    the f32 kernel's tolerance the difference from it takes)."""
+    a = run_probe(sm.fused_moments_sorted_bf16x3, x)
+    b = run_probe(sm.fused_moments_sorted_bf16x3, x)
+    ref = run_probe(sm.fused_moments_sorted_bf16x3_plain, x)
+    ref64 = run_probe(sm.fused_moments_sorted_plain, x, torch.float64)
+    bound = run_probe(sm.fused_moments_bf16x3_error_bound, x)
+    f32 = run_probe(sm.fused_moments_sorted, x)
+    f32_bound = k1_error_bound(x)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"k1-bf16x3 {label}: two launches differ")
+    if a.shape != ref.shape:
+        raise AssertionError(f"k1-bf16x3 {label}: shape {tuple(a.shape)}")
+    sparse = sparse_tag_columns(x)
+    exact = [0] + list(range(13, 13 + x["slots"])) + sparse
+    if not torch.equal(a[..., exact], ref[..., exact]):
+        raise AssertionError(f"k1-bf16x3 {label}: counts/histogram/tags "
+                             "differ from the bf16x3 plain version")
+    if not bool(((a.double() - ref64).abs() <= bound).all()):
+        raise AssertionError(f"k1-bf16x3 {label}: beyond its bound")
+    if not bool(((a.double() - f32.double()).abs() <= bound + 2 * f32_bound).all()):
+        raise AssertionError(f"k1-bf16x3 {label}: beyond the bounds of the "
+                             "f32 kernel's output")
+    err = float((a - ref).abs().max())
+    share = bf16x3_share(a, f32, f32_bound)
+    print(f"k1-bf16x3 {label}: ok, max_abs_err {err:.3e}, tags exact "
+          f"{len(sparse)}/{len(x['tags'])}, against the f32 kernel "
+          f"{share:.3f} of its tolerance")
+    return err, share
+
+
+def check_k2_bf16x3(feats, seg, k, label):
+    """K2's bf16x3 kernel on the card: two launches bit-identical, every
+    entry within ``bf16x3_error_bound`` of the plain version in float64,
+    and within that bound plus twice the f32 kernel's
+    (``segment_sum_error_bound``) of the f32 kernel's output. Returns (the
+    largest difference from the bf16x3 plain version, the share of the f32
+    kernel's tolerance the difference from it takes)."""
+    a = sm.segment_sum_sorted_bf16x3(feats, seg, k)
+    b = sm.segment_sum_sorted_bf16x3(feats, seg, k)
+    ref = sm.segment_sum_sorted_bf16x3_plain(feats, seg, k)
+    ref64 = sm.segment_sum_sorted_plain(feats.double(), seg, k)
+    bound = sm.bf16x3_error_bound(feats, seg, k)
+    f32 = sm.segment_sum_sorted(feats, seg, k)
+    f32_bound = sm.segment_sum_error_bound(feats, seg, k)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"k2-bf16x3 {label}: two launches differ")
+    if a.shape != ref.shape:
+        raise AssertionError(f"k2-bf16x3 {label}: shape {tuple(a.shape)}")
+    if not bool(((a.double() - ref64).abs() <= bound).all()):
+        raise AssertionError(f"k2-bf16x3 {label}: beyond its bound")
+    if not bool(((a.double() - f32.double()).abs() <= bound + 2 * f32_bound).all()):
+        raise AssertionError(f"k2-bf16x3 {label}: beyond the bounds of the "
+                             "f32 kernel's output")
+    err = float((a - ref).abs().max())
+    share = bf16x3_share(a, f32, f32_bound)
+    print(f"k2-bf16x3 {label}: ok, max_abs_err {err:.3e}, against the f32 "
+          f"kernel {share:.3f} of its tolerance")
+    return err, share
+
+
+def bf16x3_times(label, f32_fn, fn, plain_fn, library_fn, bound_of):
+    """The branch's kernel and the f32 kernel timed in turns (times_ms),
+    the bf16x3 plain version, the yardstick (``torch.segment_reduce`` of
+    the f32 columns: the same sums to within rounding) and the read floor;
+    the bound is the f32 kernel's bytes (the split lives in registers)."""
+    t = times_ms({"f32": f32_fn, "bf16x3": fn})
+    bound_ms, bound_by, moved = bound_of
+    out = {"ms": t["bf16x3"], "f32_ms": t["f32"], "plain_ms": time_ms(plain_fn),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(library_fn), "read_floor_ms": read_floor_ms(moved)}
+    print(f"bf16x3 {label}: kernel {out['ms']:.4f} ms, f32 kernel "
+          f"{out['f32_ms']:.4f} ms (in turns), plain {out['plain_ms']:.4f} ms, "
+          f"segment_reduce {out['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({moved / 1e6:.2f} MB by {bound_by}), read floor "
+          f"{out['read_floor_ms']:.4f} ms")
+    return out
+
+
+def bf16x3_kernels():
+    """K1's branch at K1's four timed shapes, K2's at its two and at the
+    pallas mode's [16, 70000, 42]: checked (check_k1_bf16x3,
+    check_k2_bf16x3) and timed in turns with the f32 kernel. Returns
+    {kernel: (max_abs_err, largest share, {shape: timing keys})}."""
+    out = {}
+    err = share = 0.0
+    shapes = {}
+    for label in BF16X3_K1_SHAPES:
+        x = TIMED["k1", label]
+        e, sh = check_k1_bf16x3(x, label)
+        err, share = max(err, e), max(share, sh)
+        shapes[label] = bf16x3_times(
+            f"k1 {label}", lambda: run_probe(sm.fused_moments_sorted, x),
+            lambda: run_probe(sm.fused_moments_sorted_bf16x3, x),
+            lambda: run_probe(sm.fused_moments_sorted_bf16x3_plain, x),
+            library_call(x), k1_bound_ms(x))
+    out["k1"] = (err, share, shapes)
+    _, pallas_feats, pallas_seg = kernel_micro.segment_inputs(
+        MICRO_B, MICRO_N, MICRO_F, MICRO_K)
+    pallas = (torch.from_numpy(pallas_feats).cuda(),
+              torch.from_numpy(pallas_seg).cuda(), MICRO_K)
+    del pallas_feats
+    err = share = 0.0
+    shapes = {}
+    for label in BF16X3_K2_SHAPES + ("pallas mode",):
+        feats, seg, k = (pallas if label == "pallas mode"
+                         else TIMED["segment_sum_sorted", label])
+        e, sh = check_k2_bf16x3(feats, seg, k, label)
+        err, share = max(err, e), max(share, sh)
+        kept = int((seg < k).sum())
+        width = feats.shape[-1]
+        clouds = seg.numel() // seg.shape[-1]
+        shapes[label] = bf16x3_times(
+            f"k2 {label}", lambda: sm.segment_sum_sorted(feats, seg, k),
+            lambda: sm.segment_sum_sorted_bf16x3(feats, seg, k),
+            lambda: sm.segment_sum_sorted_bf16x3_plain(feats, seg, k),
+            segment_reduce_call(feats, seg, k),
+            bound(kept, 4 * width, 4 * clouds * k * width, kept * width))
+    out["k2"] = (err, share, shapes)
+    return out
+
+
+@torch.no_grad()
+def request_outputs(pipe, points):
+    """A serving request as SegmentationPipeline makes it, keeping the
+    preprocessing's outputs: (points, covs, labels, mask, state,
+    logits)."""
+    pcl, covs, labels, mask, state = ndt_preprocessing_with_state(
+        M, points, None, C, search="probe")
+    return pcl, covs, labels, mask, state, pipe.model(pcl, covs,
+                                                      return_logits=True)
+
+
+def check_prep(out, m, label):
+    """Every cloud converged with m NDs, finite points and covariances."""
+    pcl, covs, _, mask, state = out[:5]
+    if not bool(state.converged.all()):
+        raise AssertionError(f"{label}: a cloud did not converge")
+    if not bool((mask.sum(-1) == m).all()):
+        raise AssertionError(f"{label}: not every cloud kept {m} NDs")
+    if not (bool(torch.isfinite(pcl).all()) and bool(torch.isfinite(covs).all())):
+        raise AssertionError(f"{label}: non-finite outputs")
+
+
+def check_against_f32(got, ref, label):
+    """A preprocessing under bf16x3 against the same under f32 on the
+    card. The search sees counts only, so the state's integers are equal;
+    means and covariances agree as the card and the CPU do (the
+    tolerances of check_variant_vs_cpu). Where well posed, the KLs are as
+    finite as f32's, and equal to 1e-3 the CPU's KL stage on the branch's
+    own moments (their difference from f32's is printed: the KL inverts
+    the covariance, so it scales the moments' rounding differences by the
+    condition number). The kept NDs of the two may differ where rounding
+    moves a KL across the prune's cut, in at most KEPT_DIFF_FRAC of them.
+    Returns (NDs kept under bf16x3 and not under f32, kept NDs, the
+    largest relative KL difference from f32 where well posed)."""
+    st, rs = got[4], ref[4]
+    for name in ("voxel_size", "num_valid", "counts", "zyx", "lens",
+                 "class_hist"):
+        if not torch.equal(getattr(st, name), getattr(rs, name)):
+            raise AssertionError(f"{label}: {name} differs from f32")
+    vs2 = float(st.voxel_size.max()) ** 2
+    torch.testing.assert_close(st.means, rs.means, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st.covs, rs.covs, rtol=1e-4,
+                               atol=1e-5 * max(1.0, vs2))
+    host = ndt.NDTResult(**{f.name: getattr(st, f.name).cpu()
+                            for f in dataclasses.fields(ndt.NDTResult)})
+    cpu_kl = neighbor_min_kl(host.means, host.covs, host.counts, host.zyx,
+                             host.lens)
+    rel = 0.0
+    for i in range(st.counts.shape[0]):
+        ok = well_posed(rs.counts[i].cpu(), rs.zyx[i].cpu(), rs.covs[i].cpu())
+        for name, cpu in zip(("min_kl", "max_kl"), cpu_kl):
+            a = getattr(host, name)[i][ok]
+            r = getattr(rs, name)[i].cpu()[ok]
+            if not torch.equal(torch.isinf(a), torch.isinf(r)):
+                raise AssertionError(f"{label}: {name} finiteness differs "
+                                     "from f32")
+            fin = torch.isfinite(a)
+            torch.testing.assert_close(a[fin], cpu[i][ok][fin], rtol=1e-3,
+                                       atol=1e-3)
+            if bool(fin.any()):
+                rel = max(rel, float(((a[fin] - r[fin]).abs()
+                                      / r[fin].abs().clamp(min=1e-3)).max()))
+    diff = kept = 0
+    for i in range(got[0].shape[0]):
+        mine, theirs = got[0][i][got[3][i]], ref[0][i][ref[3][i]]
+        near = torch.cdist(mine.double(), theirs.double()).amin(-1) < 1e-3
+        diff += int((~near).sum())
+        kept += len(mine)
+    if diff > KEPT_DIFF_FRAC * kept:
+        raise AssertionError(f"{label}: {diff} of {kept} kept NDs differ from f32")
+    return diff, kept, rel
+
+
+def timed_turns(fns, runs=AB_RUNS):
+    """Each of ``fns`` (name -> function returning its outputs) run
+    ``runs`` times in turns (forward, then backward order), each between
+    two CUDA events after a warm-up. Returns ({name: median ms}, {name:
+    the last run's outputs})."""
+    for fn in fns.values():
+        fn()
+    ms = {name: [] for name in fns}
+    last = {}
+    order = list(fns)
+    for i in range(runs):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            last[name] = fns[name]()
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in ms.items()}, last
+
+
+def bf16x3_paths():
+    """The main path under NDTPU_PALLAS_PRECISION=bf16x3 with the bf16x3
+    counts zeroed just before and read just after: serving requests (B 16,
+    N 70000, M 1000, 28 classes, feature_dim 768, probe search) and eager
+    segmentation train steps (the training batch, M 2080, 29 slots), each
+    timed in turns with the same under f32 (AB_RUNS each, after a
+    warm-up), and kernel_micro's pallas mode (K2). The branch's requests
+    and steps are checked against f32 (check_prep, check_against_f32);
+    the f32 kernels launch only in the f32 runs. Returns ({kernel:
+    launches}, timing and check figures)."""
+    pipe = SegmentationPipeline(n_desired=M, num_classes=C, feature_dim=F,
+                                device="cuda")
+    request = torch.from_numpy(make_batch(B, N, seed=1)).cuda()
+    points, labels = train_batch()
+    step, _ = make_ndt_seg_step(TRAIN_M, C, "probe")
+    states = {name: create_train_state(C, F, lambda _: TRAIN_LR)
+              for name in ("f32", "bf16x3")}
+
+    def under(name, fn):
+        def run():
+            with environ({sm.PRECISION_VAR: None if name == "f32" else "bf16x3"}):
+                return fn()
+        return run
+
+    def train(name):
+        with PrepRecorder(keep=True) as po:
+            states[name], m = step(states[name], points, labels)
+        return po.outs[0], m
+
+    for kernel in BF16X3_KERNELS:
+        kernel.launches = kernel.captured = 0
+    f32_k1 = sm.fused_moments_sorted.launches
+    req_ms, req = timed_turns({n: under(n, lambda: request_outputs(pipe, request))
+                               for n in ("f32", "bf16x3")})
+    step_ms, steps = timed_turns({n: under(n, lambda n=n: train(n))
+                                  for n in ("f32", "bf16x3")})
+    with bf16x3():
+        micro = kernel_micro.main(["--mode", "pallas"])
+    launches = {k.__name__: k.launches for k in BF16X3_KERNELS}
+    runs = 2 * (1 + AB_RUNS)
+    if (launches != {"fused_moments_sorted_bf16x3": runs,
+                     "segment_sum_sorted_bf16x3": MICRO_RUNS}
+            or sm.fused_moments_sorted.launches - f32_k1 != runs
+            or any(k.captured for k in BF16X3_KERNELS)):
+        raise AssertionError(f"bf16x3 paths: launches {launches}, f32 K1 "
+                             f"{sm.fused_moments_sorted.launches - f32_k1}")
+    check_prep(req["bf16x3"], M, "bf16x3 request")
+    if not bool(torch.isfinite(req["bf16x3"][5]).all()):
+        raise AssertionError("bf16x3 request: non-finite logits")
+    req_diff = check_against_f32(req["bf16x3"], req["f32"], "bf16x3 request")
+    (prep_b, m_b), (prep_f, _) = steps["bf16x3"], steps["f32"]
+    check_prep(prep_b, TRAIN_M, "bf16x3 train step")
+    loss, acc = float(m_b["loss"]), float(m_b["accuracy"])
+    if not (math.isfinite(loss) and 0 <= acc <= 1):
+        raise AssertionError(f"bf16x3 train step: loss {loss}, accuracy {acc}")
+    step_diff = check_against_f32(prep_b, prep_f, "bf16x3 train step")
+    print(f"bf16x3 request: {req_ms['bf16x3']:.3f} ms against f32 "
+          f"{req_ms['f32']:.3f} ms (median of {AB_RUNS}, in turns); kept NDs "
+          f"not kept under f32: {req_diff[0]} of {req_diff[1]}; well-posed "
+          f"KLs within {req_diff[2]:.2e} of f32's (relative)")
+    print(f"bf16x3 train step: {step_ms['bf16x3']:.3f} ms against f32 "
+          f"{step_ms['f32']:.3f} ms; loss {loss:.4f}; kept NDs not kept under "
+          f"f32: {step_diff[0]} of {step_diff[1]}; well-posed KLs within "
+          f"{step_diff[2]:.2e} of f32's; kernel_micro pallas "
+          f"{micro['ms_per_batch']:.4f} ms under bf16x3")
+    return launches, {"request_ms": req_ms, "step_ms": step_ms,
+                      "request_kept_diff": list(req_diff),
+                      "step_kept_diff": list(step_diff),
+                      "pallas_mode_ms": micro["ms_per_batch"]}
+
+
+def modes_phase():
+    """One serving request (the bf16x3 paths' pipeline and batch) under
+    each of MODES against the default request, timed in turns with it:
+    points, covariances, labels, mask, min_kl and max_kl and the logits
+    bit-identical. Returns {mode: (default ms, mode ms)}."""
+    pipe = SegmentationPipeline(n_desired=M, num_classes=C, feature_dim=F,
+                                device="cuda")
+    request = torch.from_numpy(make_batch(B, N, seed=1)).cuda()
+    out = {}
+    for label, values in MODES:
+        def run(vals):
+            def fn():
+                with environ(vals):
+                    return request_outputs(pipe, request)
+            return fn
+        ms, got = timed_turns({"default": run({k: None for k in values}),
+                               label: run(values)})
+        a, b = got["default"], got[label]
+        pairs = list(zip(a[:4], b[:4])) + [(a[4].min_kl, b[4].min_kl),
+                                           (a[4].max_kl, b[4].max_kl),
+                                           (a[5], b[5])]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{label}: the request differs from the "
+                                 "default's")
+        out[label] = (ms["default"], ms[label])
+        print(f"mode {label}: bit-identical to the default; {ms[label]:.3f} "
+              f"ms against {ms['default']:.3f} ms (median of {AB_RUNS}, in turns)")
+    return out
+
+
+def bf16x3_phase():
+    """The bf16x3 branch's kernels (bf16x3_kernels), the main path under
+    it (bf16x3_paths), the A/B modes (modes_phase). Returns the kernels
+    line's K1-bf16x3 and K2-bf16x3 entries."""
+    t0 = time.perf_counter()
+    kernels = bf16x3_kernels()
+    launches, paths = bf16x3_paths()
+    modes = modes_phase()
+    entries = []
+    for key, name, line, headline in (
+            ("k1", "fused_moments_sorted_bf16x3", 253, "canonical"),
+            ("k2", "segment_sum_sorted_bf16x3", 81, "giant")):
+        err, share, shapes = kernels[key]
+        entries.append({
+            "name": f"{key.upper()}-bf16x3", "route": "cuda",
+            "source": "ndtpu_torch/csrc/segment_moments.cu",
+            "replaces": f"ndtpu/ops/pallas/segment_moments.py:{line}",
+            "launches": launches[name], "max_abs_err": err,
+            **{k: v for k, v in shapes[headline].items()},
+            "f32_bound_share": share, "shapes": shapes})
+    entries[0]["paths"] = paths
+    entries[0]["modes"] = {k: {"default_ms": a, "ms": b}
+                           for k, (a, b) in modes.items()}
+    print(f"bf16x3: phase took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp_worker"]:
         return dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -3510,6 +3947,7 @@ def main() -> int:
     tools_launches, tools_err, tools_times = tools_phase()
     mc_k1, mc_k3, mc_err = multichip_phase()
     sc_k1, sc_k3, sc_k2, sc_err, sc_k2_err, probes = scripts_phase()
+    bf16x3_entries = bf16x3_phase()
     # K1's launches on the main paths; its giant-, training- and
     # multiscale-shape times ride along, as K2's canonical-batch times ride
     # along with its giant entry
@@ -3533,7 +3971,7 @@ def main() -> int:
                             sc_k2_err)
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}
     print(json.dumps({"not_a_tpu_kernel": fps}))
-    print(json.dumps({"kernels": [k1] + k3_k2 + probes}))
+    print(json.dumps({"kernels": [k1] + k3_k2 + probes + bf16x3_entries}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

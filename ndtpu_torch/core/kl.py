@@ -4,12 +4,26 @@
 The divergence keeps the reference's determinant-ratio sign
 (kullback_leibler.c:115, ``+ ln(det p / det q)``) and the JAX package's
 scale-aware singularity mask ``|det| > rel_eps * (tr/3)^3``.
-``neighbor_min_kl`` is the payload mode, the JAX default: the K segment
-rows are re-sorted by (z, x | y) and (y, x | z) with their moments riding
-along, so every 6-neighbor pair is two adjacent rows of one sorted order.
-All functions take a leading batch dimension.
+``neighbor_min_kl`` has the JAX package's two modes, read at each call
+as it reads them (ndtpu/core/kl.py:86-106):
+
+- ``NDTPU_KL_MODE``: "payload" (the default) re-sorts the K segment rows
+  by (z, x | y) and (y, x | z) with their moments riding along, so every
+  6-neighbour pair is two adjacent rows of one sorted order; any other
+  value selects "gather", the composition the payload mode replaced:
+  the two re-sorts carry only the segment ids, and each axis gathers the
+  moments of its pairs (18 segment gathers).
+- ``NDTPU_KL_INV`` (gather mode only, as in JAX): "scatter" (the default)
+  takes each axis back to segment order with one scatter-set; any other
+  value selects "argsort", the inverse permutation by ``argsort`` and a
+  gather.
+
+All modes give the same outputs bit for bit (the mirrored covariance
+entries are bit-equal). All functions take a leading batch dimension.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -70,21 +84,32 @@ def _pack_pair(a, b, b_span):
     return torch.where(a == INT32_MAX, INT32_MAX, a * b_span + b)
 
 
-def _pair_minmax(major, minor, m, c, cnt):
-    """Directional KLs between adjacent rows of one sorted layout: row i
-    and i+1 are grid neighbours iff their majors match (and are not
-    padding) and the minors differ by one. Returns per-row (min, max) over
-    the row's two possible pairs."""
-    adj = (
-        (major[..., :-1] == major[..., 1:])
-        & (major[..., :-1] != INT32_MAX)
-        & (minor[..., 1:] == minor[..., :-1] + 1)
-    )
-    ok = adj & (cnt[..., :-1] > 1) & (cnt[..., 1:] > 1)
-    kl_ab, def_ab = gaussian_kl(m[..., :-1, :], c[..., :-1, :, :],
-                                m[..., 1:, :], c[..., 1:, :, :])
-    kl_ba, def_ba = gaussian_kl(m[..., 1:, :], c[..., 1:, :, :],
-                                m[..., :-1, :], c[..., :-1, :, :])
+def kl_mode() -> str:
+    """"payload" when NDTPU_KL_MODE is unset or "payload", else "gather"."""
+    return ("payload" if os.environ.get("NDTPU_KL_MODE", "payload") == "payload"
+            else "gather")
+
+
+def inv_mode() -> str:
+    """"scatter" when NDTPU_KL_INV is unset or "scatter", else "argsort"."""
+    return ("scatter" if os.environ.get("NDTPU_KL_INV", "scatter") == "scatter"
+            else "argsort")
+
+
+def _adjacent(major, minor):
+    """Rows i and i+1 of one sorted layout are grid neighbours: their
+    majors match (and are not padding) and the minors differ by one."""
+    return ((major[..., :-1] == major[..., 1:])
+            & (major[..., :-1] != INT32_MAX)
+            & (minor[..., 1:] == minor[..., :-1] + 1))
+
+
+def _minmax(ok, m_a, c_a, m_b, c_b):
+    """Per-row (min, max) of the directional KLs of pairs (a, b) = rows
+    (i, i+1) where ``ok``: row i sees pair i forward and pair i-1
+    backward."""
+    kl_ab, def_ab = gaussian_kl(m_a, c_a, m_b, c_b)
+    kl_ba, def_ba = gaussian_kl(m_b, c_b, m_a, c_a)
     inf = torch.full_like(kl_ab[..., :1], float("inf"))
     fwd = torch.where(ok & def_ab, kl_ab, float("inf"))
     bwd = torch.where(ok & def_ba, kl_ba, float("inf"))
@@ -93,6 +118,15 @@ def _pair_minmax(major, minor, m, c, cnt):
     bwd = torch.where(ok & def_ba, kl_ba, float("-inf"))
     mx = torch.maximum(torch.cat([fwd, -inf], -1), torch.cat([-inf, bwd], -1))
     return mn, mx
+
+
+def _pair_minmax(major, minor, m, c, cnt):
+    """Directional KLs between adjacent rows of one sorted layout, with
+    the rows' moments m, c and counts cnt in that layout. Returns per-row
+    (min, max) over the row's two possible pairs."""
+    ok = _adjacent(major, minor) & (cnt[..., :-1] > 1) & (cnt[..., 1:] > 1)
+    return _minmax(ok, m[..., :-1, :], c[..., :-1, :, :], m[..., 1:, :],
+                   c[..., 1:, :, :])
 
 
 def _sym(c6):
@@ -115,7 +149,9 @@ def neighbor_min_kl(means, covs, counts, zyx, lens):
     Each re-sort is one stable ``torch.sort`` of an int64 key
     ``major << 32 | minor`` (both parts in [0, INT32_MAX]) followed by a
     gather of the payload: the same order as the JAX two-key stable
-    ``lax.sort``, padding ties kept in input order.
+    ``lax.sort``, padding ties kept in input order (the gather mode's
+    three-key sort, whose third key is the input position, gives the
+    same order). ``kl_mode`` and ``inv_mode`` pick the composition.
     """
     k = means.shape[-2]
     if k < 2:
@@ -126,6 +162,9 @@ def neighbor_min_kl(means, covs, counts, zyx, lens):
     lens = lens.long()
     z, y, x = zyx[..., 0], zyx[..., 1], zyx[..., 2]
     lx, ly = lens[..., 0:1], lens[..., 1:2]
+    if kl_mode() == "gather":
+        return _neighbor_min_kl_gather(means, covs, counts, z, y, x, lx, ly,
+                                       inv_mode())
     c6 = torch.stack([covs[..., 0, 0], covs[..., 0, 1], covs[..., 0, 2],
                       covs[..., 1, 1], covs[..., 1, 2], covs[..., 2, 2]], -1)
     payload = torch.cat([means, c6], dim=-1)  # [B, K, 9]
@@ -144,6 +183,47 @@ def neighbor_min_kl(means, covs, counts, zyx, lens):
         return (torch.empty_like(mn).scatter_(-1, order, mn),
                 torch.empty_like(mx).scatter_(-1, order, mx))
 
+    mn_y, mx_y = resorted(_pack_pair(z, x, lx), y)
+    mn_z, mx_z = resorted(_pack_pair(y, x, lx), z)
+    min_kl = torch.minimum(torch.minimum(mn_x, mn_y), mn_z)
+    max_kl = torch.maximum(torch.maximum(mx_x, mx_y), mx_z)
+    return min_kl, max_kl
+
+
+def _neighbor_min_kl_gather(means, covs, counts, z, y, x, lx, ly, inverse):
+    """The gather mode (ndtpu/core/kl.py:155-209): the two re-sorts carry
+    only the segment ids (the permutation), each axis gathers its pairs'
+    moments and counts by segment id and takes its minima and maxima back
+    to segment order by ``inverse`` ("scatter": a scatter-set; "argsort":
+    ``argsort`` of the permutation and a gather). The +-x axis runs on the
+    identity permutation, as in JAX."""
+    idx = torch.arange(means.shape[-2], device=means.device).expand(
+        counts.shape).contiguous()
+
+    def rows(t, i):
+        shape = i.shape + t.shape[i.dim():]
+        return torch.gather(t, i.dim() - 1,
+                            i.reshape(i.shape + (1,) * (t.dim() - i.dim()))
+                            .expand(shape))
+
+    def axis_contrib(major, minor, perm):
+        a, b = perm[..., :-1], perm[..., 1:]
+        ok = (_adjacent(major, minor) & (rows(counts, a) > 1)
+              & (rows(counts, b) > 1))
+        mn, mx = _minmax(ok, rows(means, a), rows(covs, a), rows(means, b),
+                         rows(covs, b))
+        if inverse == "scatter":
+            return (torch.full_like(mn, float("inf")).scatter_(-1, perm, mn),
+                    torch.full_like(mx, float("-inf")).scatter_(-1, perm, mx))
+        inv = torch.argsort(perm, dim=-1)
+        return torch.gather(mn, -1, inv), torch.gather(mx, -1, inv)
+
+    def resorted(major, minor):
+        perm = torch.sort((major << 32) | minor, dim=-1, stable=True).indices
+        return axis_contrib(torch.gather(major, -1, perm),
+                            torch.gather(minor, -1, perm), perm)
+
+    mn_x, mx_x = axis_contrib(_pack_pair(z, y, ly), x, idx)
     mn_y, mx_y = resorted(_pack_pair(z, x, lx), y)
     mn_z, mx_z = resorted(_pack_pair(y, x, lx), z)
     min_kl = torch.minimum(torch.minimum(mn_x, mn_y), mn_z)

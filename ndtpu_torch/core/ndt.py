@@ -33,13 +33,17 @@ What changes against the JAX package:
   ``_min_packable_voxel_size``), and one sorted key serves both.
 - ``lax.sort`` (stable, multi-operand) is ``torch.sort(stable=True)`` of
   the key followed by a gather of the payload.
-- The JAX package's ``NDTPU_EMIT=payload`` emit is not ported: it gives
-  the gather-mode emit's outputs bit for bit.
+- The emit reads ``NDTPU_EMIT`` at each call as the JAX package does:
+  "gather" (the default) gathers the kept rows by the compaction's
+  permutation; any other value selects "payload", where the rows' means,
+  6 unique covariance entries and labels ride the compaction sort as one
+  payload. Both give the same outputs bit for bit.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 
 import numpy as np
@@ -650,6 +654,8 @@ def _emit(state: NDTResult, n_out: int, prune_order: str = "ascending"):
     ar = torch.arange(k, device=key.device)
     kept_s = (ar[None] >= to_remove[:, None]) & torch.gather(occupied, -1,
                                                              seg_by_kl)
+    if os.environ.get("NDTPU_EMIT", "gather") != "gather":
+        return _emit_payload(state, n_out, seg_by_kl, kept_s)
     # sort 2: compaction in ascending segment (voxel-index) order; the
     # keys are unique
     comp_key = torch.where(kept_s, seg_by_kl, k + seg_by_kl)
@@ -666,6 +672,34 @@ def _emit(state: NDTResult, n_out: int, prune_order: str = "ascending"):
     covs = torch.where(m, rows(state.covs), 0.0)
     labels = torch.where(out_mask,
                          rows(state.class_hist).argmax(-1).to(torch.int32), 0)
+    return pcl, covs, labels, out_mask
+
+
+def _emit_payload(state: NDTResult, n_out: int, seg_by_kl, kept_s):
+    """The payload emit (ndtpu/core/ndt.py:913-936, NDTPU_EMIT=payload):
+    the kept flags scattered back to segment order, the compaction key in
+    segment order, one sort, and the means, the 6 unique covariance
+    entries and the argmax labels of all K rows as one stacked payload
+    gathered by the sort's indices (labels < 2**24 ride exactly as f32);
+    the covariances rebuilt symmetric from the upper entries."""
+    k = state.max_nds
+    kept_seg = torch.zeros_like(kept_s).scatter_(-1, seg_by_kl, kept_s)
+    ar = torch.arange(k, device=kept_s.device)
+    comp_key, order = torch.sort(torch.where(kept_seg, ar, k + ar), dim=-1)
+    m, c = state.means, state.covs
+    payload = torch.stack(
+        [m[..., 0], m[..., 1], m[..., 2],
+         c[..., 0, 0], c[..., 0, 1], c[..., 0, 2],
+         c[..., 1, 1], c[..., 1, 2], c[..., 2, 2],
+         state.class_hist.argmax(-1).to(m.dtype)], -1)  # [B, K, 10]
+    cols = torch.gather(payload, 1, order[:, :n_out, None].expand(-1, -1, 10))
+    out_mask = comp_key[:, :n_out] < k
+    mk = out_mask[..., None]
+    pcl = torch.where(mk, cols[..., 0:3], 0.0)
+    c0, c1, c2, c3, c4, c5 = cols[..., 3:9].unbind(-1)
+    covs = torch.where(mk, torch.stack([c0, c1, c2, c1, c3, c4, c2, c4, c5], -1),
+                       0.0)
+    labels = torch.where(out_mask, cols[..., 9].to(torch.int32), 0)
     return pcl, covs, labels, out_mask
 
 

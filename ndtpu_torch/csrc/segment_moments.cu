@@ -11,6 +11,12 @@
 //   ndtpu_moments_empty    <- empty_body  (entry ops/moment_probes.py)
 //   ndtpu_moments_noflop   <- noflop_body
 //
+// and the bf16x3 branch of K1 and K2 (NDTPU_PALLAS_PRECISION=bf16x3,
+// section "bf16x3" at the end: a one-hot contraction on the tensor cores):
+//
+//   ndtpu_segment_moments_bf16x3  <- _moments_kernel, bf16x3 branch
+//   ndtpu_segment_sum_bf16x3      <- _kernel, bf16x3 branch
+//
 // Precondition (as for the TPU kernels): each cloud's ids are sorted
 // (non-decreasing; the pipeline gives dense ranks with unit steps, gaps are
 // allowed), so segment s is the contiguous run that starts at
@@ -65,6 +71,7 @@
 // Every entry returns cudaGetLastError() after its launch (0 = success) and
 // launches on the stream it is given.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,6 +115,7 @@ struct RangePlan {
   int groups;  // K2's column groups (the grid's y), else 1
   long long blocks;  // chunks of every cloud x groups
   long long smem;
+  int per_sm;  // blocks an SM the grid counts on
 };
 
 // Tile: the largest power of two in [kMinTile, kMaxTile] whose n_cols
@@ -120,6 +128,9 @@ struct RangePlan {
 // group gets an equal share of them, the chunk is a cloud's points over
 // its share, rounded up to a multiple of kChunkStep, at least kMinChunk. A
 // second, partial wave would leave most SMs idle while it runs.
+void plan_grid(RangePlan& plan, int batch, int n, int groups,
+               long long cap = kBlocksPerSM);
+
 RangePlan range_plan(int batch, int n, long long n_cols, int slots,
                      int carry, int groups) {
   RangePlan plan;
@@ -128,8 +139,16 @@ RangePlan range_plan(int batch, int n, long long n_cols, int slots,
     plan.tile /= 2;
   const long long scratch = 32LL * (kRangeWarps * slots + 2LL * carry);
   plan.smem = 4 * (2 * n_cols * (plan.tile + 8) + scratch) + 4LL * plan.tile;
+  plan_grid(plan, batch, n, groups);
+  return plan;
+}
+
+// The chunk and grid of a plan whose blocks take plan.smem bytes, at most
+// cap blocks an SM.
+void plan_grid(RangePlan& plan, int batch, int n, int groups, long long cap) {
   const long long fit = kSmemPerSM / (plan.smem + kSmemReserved);
-  const long long per_sm = fit < 1 ? 1 : fit < kBlocksPerSM ? fit : kBlocksPerSM;
+  const long long per_sm = fit < 1 ? 1 : fit < cap ? fit : cap;
+  plan.per_sm = static_cast<int>(per_sm);
   const long long grids = static_cast<long long>(batch) * groups;
   const long long share = kSMs * per_sm > grids ? kSMs * per_sm / grids : 1;
   const long long per_chunk = (n + share - 1) / share;
@@ -137,7 +156,6 @@ RangePlan range_plan(int batch, int n, long long n_cols, int slots,
   plan.chunk = rounded < kMinChunk ? kMinChunk : static_cast<int>(rounded);
   plan.groups = groups;
   plan.blocks = grids * ((n + plan.chunk - 1) / plan.chunk);
-  return plan;
 }
 
 // K2's layout: columns per block (width), floats between staged rows
@@ -1208,4 +1226,707 @@ extern "C" int ndtpu_sum_plan(int batch, int n, int f, long long* out) {
   out[5] = p.pitch;
   out[6] = p.range.groups;
   return 0;
+}
+
+// ---- bf16x3: the one-hot contraction on the tensor cores (K1, K2) ----
+//
+// The TPU kernels' precision branch (NDTPU_PALLAS_PRECISION=bf16x3,
+// ndtpu/ops/pallas/segment_moments.py:81-102 in _kernel, :253-266 in
+// _moments_kernel): each f32 feature x is split into three bf16 chunks,
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (round to
+// nearest even; each residual is exact in f32), the three are contracted
+// against the bf16 one-hot of the segment ids with f32 accumulation, and
+// the three partial sums are folded as (P_hi + P_mid) + P_lo. Here the
+// contraction is mma.sync.m16n8k16 (bf16 inputs, f32 accumulate) on the
+// tensor cores:
+//
+// - A block owns the segments that start in its chunk and streams their
+//   points [p0, p1) through shared memory in tiles, as reduce_chunk (the
+//   same ownership, searches, staging policies and cp.async stages).
+// - Each warp takes a contiguous quarter of a tile (tile / 4 points, a
+//   multiple of 32) and walks it 32 points a step (two k-steps of 16),
+//   or 16 where 32 points span more than 16 segments. A point's row of
+//   the one-hot A (16 x 16, in registers) is its segment's rank among the
+//   step's segments (a ballot of the segment starts, then popc), so 16
+//   points span at most 16 rows; B (16 points x 8 columns, an n-tile) is
+//   the k-step's feature columns split into hi, mid and lo. K1 builds its
+//   columns (v, x, y, z, the 6 products, v * onehot(cls), the tags) a
+//   lane a point into a per-warp B tile in shared memory, each value split
+//   once; K2 splits its staged rows' values in registers. One A, 3 mma an
+//   n-tile (P_hi, P_mid, P_lo in f32 accumulators).
+// - The segment open at a step's end stays in its accumulator row and the
+//   next step's mma adds to it (the row moves to row 0, by shuffles, only
+//   when the next step's segments would run past row 15); the rows that
+//   close are folded, (hi + mid) + lo, and written. A warp parks
+//   the sums of the segment open at its quarter's end (and of a segment
+//   that began before its quarter and closed in it) in shared memory; after
+//   the tile, the block joins them in quarter order, in f32, with the
+//   segment open across tiles kept in registers (one thread a column).
+//   No atomics: the order depends only on the plan, so two launches are
+//   bit-identical.
+// - A block sums at most kMmaCols columns (6 n-tiles, 72 accumulators a
+//   thread); wider rows take a grid dimension of column groups. Each
+//   kernel is instanced by its n-tiles (2, 4 or 6: 24 accumulators where
+//   16 columns do) and by the blocks an SM its plan counts on (mma_plan:
+//   tiles of at most 512 points, 4 blocks with 2 n-tiles, else 3 where
+//   their shared memory fits, else 2), which caps its registers.
+//
+// The fold is JAX's, so a column with one nonzero a segment (the tags)
+// gives (hi + mid) + lo of that value bit for bit, and 0/1 columns (the
+// class histogram, the count) are exact. Other sums differ from the f32
+// kernel in low-order bits: the tensor core's f32 accumulation is not a
+// sequence of rounded additions (ops/segment_moments.py:bf16x3_error_bound
+// bounds it as an alignment to the largest term with truncation).
+//
+// Bound: the f32 kernel's bytes (the split lives in registers), at 3.35
+// TB/s; the tensor-core work (3 x 16 x 16 x 8 x 2 flop an n-tile and
+// k-step) is far below the card's bf16 rate.
+
+namespace {
+
+constexpr int kMmaCols = 48;              // columns a block sums, at most
+constexpr int kChunks = 3;                // hi, mid, lo
+constexpr unsigned short kBf16One = 0x3F80;
+// A warp's parked sums: [head, tail][chunk][column]
+constexpr int kParkFloats = 2 * kChunks * kMmaCols;
+// the parks, the warps' row ids (16 each) and flags (4 each), in floats
+constexpr int kMmaScratchFloats = kRangeWarps * (kParkFloats + 16 + 4);
+// K1's B tile: [chunk][column][kBStride] bf16 a warp, a column's 32
+// points then 8 of padding, so that the lanes' 32-bit fragment loads
+// (column g, points 2t, 2t + 1, + 8, + 16) fall on 32 distinct banks
+constexpr int kBStride = 40;
+constexpr int kMmaStageBytes = 24 * 1024;  // a stage's columns, at most
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as hi, mid, lo bf16 bit patterns (JAX's astype(bfloat16): nearest even)
+struct Split3 {
+  unsigned short c[kChunks];
+};
+
+__device__ __forceinline__ Split3 split_bf16x3(float x) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+  const float r1 = __fsub_rn(x, __bfloat162float(hi));
+  const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+  return {{__bfloat16_as_ushort(hi), __bfloat16_as_ushort(mid),
+           __bfloat16_as_ushort(lo)}};
+}
+
+__device__ __forceinline__ unsigned pack2(unsigned short lo_elem,
+                                          unsigned short hi_elem) {
+  return static_cast<unsigned>(lo_elem) | (static_cast<unsigned>(hi_elem) << 16);
+}
+
+// JAX's fold of the three partial sums
+__device__ __forceinline__ float fold3(float hi, float mid, float lo) {
+  return __fadd_rn(__fadd_rn(hi, mid), lo);
+}
+
+// A feature policy gives a warp, for each step (up to 32 points from g0,
+// the first n_valid of them in range; two mma k-steps of 16), the B
+// fragments of its n-tiles: prepare(view, g0, n_valid), then
+// fragments(view, j, b) fills b[k-step][chunk] with this lane's two
+// registers of n-tile j (column 8 j + g of points 16 h + 2 t, + 1 and
+// 16 h + 2 t + 8, + 9).
+
+// K1: the columns of add_moment_row without the mirrored products, u = 0..9
+// the moments v, x, y, z, xx, xy, xz, yy, yz, zz, then v * (cls == c) for
+// the slots, then the tags; a block takes columns [c0, c0 + ncols). A
+// step's points are built point-parallel (lane l: point l) and split into
+// the warp's B tile in shared memory: every lane runs the same code on its
+// own point, no lane selects a column, and each value is split once (a
+// class column takes the split of v where the class matches, else zeros).
+struct MomentFeature {
+  int slots, n_tags, c0, ncols, width;  // width: the tile's columns, 8 ntiles
+  unsigned short* tile;                  // this warp's [kChunks][width][kBStride]
+
+  __device__ __forceinline__ int columns() const { return 10 + slots + n_tags - c0; }
+
+  __device__ __forceinline__ void put(int u, const Split3& s, int p) const {
+    const int c = u - c0;
+    if (c < 0 || c >= width) return;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+      tile[(ch * width + c) * kBStride + p] = s.c[ch];
+  }
+
+  __device__ __forceinline__ void prepare(const ColumnView& v, int g0,
+                                          int n_valid) const {
+    const int p = threadIdx.x & 31;
+    const int g = g0 + p;
+    const bool valid = p < n_valid;
+    float x = 0.0f, y = 0.0f, z = 0.0f, w = 0.0f;
+    int cls = -1;
+    if (valid) {
+      x = v.stage[v.off[kXt] + g];
+      y = v.stage[v.off[kXt + 1] + g];
+      z = v.stage[v.off[kXt + 2] + g];
+      w = v.stage[v.off[kV] + g];
+      if (slots > 0) cls = class_of(v, g);
+    }
+    if (c0 < 10) {
+      const float m[10] = {w, x, y, z, x * x, x * y, x * z, y * y, y * z, z * z};
+#pragma unroll
+      for (int u = 0; u < 10; ++u) put(u, split_bf16x3(m[u]), p);
+    }
+#pragma unroll
+    for (int t = 0; t < NDTPU_MAX_TAGS; ++t)
+      if (t < n_tags)
+        put(10 + slots + t,
+            split_bf16x3(valid ? v.stage[v.off[kTag0 + t] + g] : 0.0f), p);
+    const Split3 sw = split_bf16x3(w), zero = {{0, 0, 0}};
+    const int c_end = min(slots, c0 + width - 10);
+    for (int c = max(c0 - 10, 0); c < c_end; ++c) put(10 + c, cls == c ? sw : zero, p);
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void fragments(const ColumnView&, int j,
+                                            unsigned (&b)[2][kChunks][2]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const unsigned* col = reinterpret_cast<const unsigned*>(
+          tile + (ch * width + 8 * j + g) * kBStride);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        b[h][ch][0] = col[8 * h + t];
+        b[h][ch][1] = col[8 * h + 4 + t];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void done() const {
+    __syncwarp();  // the tile is read before the next step writes it
+  }
+};
+
+// K1's output row from the unique columns: u < 10 to moment_column(u) and
+// its mirror, the slots and tags to u + 3. Column group c0 of the columns.
+struct MomentOut {
+  float* out;
+  int f, num_segments, c0;
+
+  __device__ __forceinline__ void write(int b, int s, int c, float val) const {
+    const int u = c0 + c;
+    float* row = out + (static_cast<long long>(b) * num_segments + s) * f;
+    if (u < 10) {
+      row[moment_column(u)] = val;
+      if (mirror_column(u) >= 0) row[mirror_column(u)] = val;
+    } else {
+      row[u + 3] = val;
+    }
+  }
+
+  // whole rows, by the first column group only
+  __device__ __forceinline__ void zero(int b, int from, int to, int i,
+                                       int stride) const {
+    if (c0 == 0) Rows{out, f, num_segments}.zero(b, from, to, i, stride);
+  }
+};
+
+// K2: a staged row's columns [c0, c0 + w) (RowStage sets them per group),
+// built by each lane for its eight points of column 8 j + g, split in
+// registers.
+struct RowFeature {
+  int w;
+  const float* rows[2][4];  // k-step h: points 16 h + 2 t, + 1, + 8, + 9
+
+  __device__ __forceinline__ int columns() const { return w; }
+
+  __device__ __forceinline__ void prepare(const RowView& v, int g0,
+                                          int n_valid) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 16 * h + 2 * t + (q & 1) + 8 * (q >> 1);
+        rows[h][q] = k < n_valid ? v.row(g0 + k) : nullptr;
+      }
+  }
+
+  __device__ __forceinline__ void fragments(const RowView&, int j,
+                                            unsigned (&b)[2][kChunks][2]) const {
+    const int c = 8 * j + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      Split3 s[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        s[q] = split_bf16x3(rows[h][q] != nullptr && c < w ? rows[h][q][c] : 0.0f);
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch) {
+        b[h][ch][0] = pack2(s[0].c[ch], s[1].c[ch]);
+        b[h][ch][1] = pack2(s[2].c[ch], s[3].c[ch]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void done() const {}
+};
+
+struct RowOut {
+  GroupRows rows;
+
+  __device__ __forceinline__ void write(int b, int s, int c, float val) const {
+    rows.out[(static_cast<long long>(b) * rows.num_segments + s) * rows.f +
+             rows.c0 + c] = val;
+  }
+
+  __device__ __forceinline__ void zero(int b, int from, int to, int i,
+                                       int stride) const {
+    rows.zero(b, from, to, i, stride);
+  }
+};
+
+struct RangeFlags {
+  int nonempty, cont, head_parked, tail_id;
+};
+
+// One warp's walk over its quarter [r0, r1) of a staged tile. acc[ch][j]
+// is the m16n8k16 C fragment of chunk ch, n-tile j < NT: this lane (group
+// g = lane / 4, t = lane % 4) holds rows g, g + 8 and columns 8 j + 2 t,
+// + 1. NT (2, 4 or 6) is the kernel's: 24 accumulators a thread untagged.
+template <int NT, class Feature, class Out>
+struct MmaWarp {
+  float acc[kChunks][NT][4];
+  Feature feat;
+  const Out& out;
+  float* park;  // this warp's [2][kChunks][kMmaCols]
+  int* row_id;  // this warp's [16]
+  int b, ncols, ntiles;
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ch][j][e] = 0.0f;
+  }
+
+  // row r (= g + 8 half, held by this lane) parked as kind (0 head, 1 tail)
+  __device__ __forceinline__ void park_row(int kind, int half) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < ntiles)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            park[(kind * kChunks + ch) * kMmaCols + 8 * j + 2 * t + e] =
+                acc[ch][j][2 * half + e];
+  }
+
+  __device__ __forceinline__ void write_row(int s, int half) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        if (j < ntiles && c < ncols)
+          out.write(b, s, c, fold3(acc[0][j][2 * half + e], acc[1][j][2 * half + e],
+                                   acc[2][j][2 * half + e]));
+      }
+  }
+
+  // row r's sums, closed: parked as the head if it is the quarter's head,
+  // else folded and written as segment s (by the lanes that hold it; the
+  // half is a constant in each call, so the accumulators stay registers)
+  __device__ __forceinline__ void close_row(int r, bool head, int s) {
+    if ((threadIdx.x & 31) >> 2 != (r & 7)) return;
+    if (r < 8) {
+      if (head)
+        park_row(0, 0);
+      else
+        write_row(s, 0);
+    } else {
+      if (head)
+        park_row(0, 1);
+      else
+        write_row(s, 1);
+    }
+  }
+
+  // the steps over [r0, r1); ids of the tile's view; p0, s_lo: the
+  // block's first point and segment. Returns this quarter's flags (lane 0
+  // stores them) and leaves the tail parked.
+  //
+  // A step takes 32 points (two mma k-steps: one ballot, one pass of the
+  // bookkeeping) when their segments fit 16 rows, else 16. The open
+  // segment's sums stay in accumulator row `base`; a step's segments take
+  // the rows from it (or from base + 1 when the open segment closed at the
+  // step's edge) in order, so a row moves only when a step would run past
+  // row 15: then row base moves to row 0 (shuffles) and the rest are
+  // cleared. Closed rows keep stale sums, never read again: the rows
+  // above base are zero.
+  template <class View>
+  __device__ __forceinline__ RangeFlags walk(const View& view, int r0, int r1,
+                                             int p0, int s_lo) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int* ids = view.ids;
+    const bool cont = r0 > p0 && ids[r0 - 1] == ids[r0];
+    bool head_pending = cont, has_carry = false;
+    int carry_id = 0, base = 0;
+    clear();
+    for (int g0 = r0; g0 < r1;) {
+      const int gk = g0 + lane;
+      const bool valid = gk < r1;
+      const int id = valid ? ids[gk] : 0;
+      const int prev = valid ? (gk == p0 ? s_lo - 1 : ids[gk - 1]) : 0;
+      const unsigned starts32 =
+          __ballot_sync(0xffffffffu, valid && lane > 0 && id != prev);
+      // 32 points if their segments fit the rows, else 16
+      const int step = __popc(starts32) < 16 ? 32 : 16;
+      const unsigned starts = step == 32 ? starts32 : starts32 & 0xffffu;
+      const int n_valid = min(r1 - g0, step);
+      if (lane < n_valid && id > prev + 1) out.zero(b, prev + 1, id, 0, 1);
+      const int id0 = __shfl_sync(0xffffffffu, id, 0);
+      const int rows = __popc(starts) + 1;  // the step's segments
+      feat.prepare(view, g0, n_valid);
+
+      // the open segment continues into the step, or closed at its edge
+      const bool cont0 = has_carry && id0 == carry_id;
+      if (has_carry && !cont0) {
+        close_row(base, head_pending, carry_id);
+        head_pending = false;
+      }
+      int first = has_carry ? (cont0 ? base : base + 1) : 0;
+      if (first + rows > 16) {  // out of rows: the open one to row 0
+        const int src = (base & 7) * 4 + t, hi = base >> 3;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j >= ntiles) break;
+#pragma unroll
+          for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float moved = __shfl_sync(
+                  0xffffffffu, hi ? acc[ch][j][2 + e] : acc[ch][j][e], src);
+              acc[ch][j][e] = cont0 && g == 0 ? moved : 0.0f;
+              acc[ch][j][2 + e] = 0.0f;
+            }
+        }
+        first = 0;
+      }
+      // point k's row: first + the segment starts in 1 .. k
+      if (lane < n_valid && (lane == 0 || (starts >> lane & 1u)))
+        row_id[first + __popc(starts & ((2u << lane) - 1u))] = id;
+
+      // A of k-step h: one-hot of points 16 h + 2t, + 1, + 8, + 9 by rows
+      unsigned a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int row[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = 16 * h + 2 * t + (q & 1) + 8 * (q >> 1);
+          row[q] = k < n_valid ? first + __popc(starts & ((2u << k) - 1u)) : -1;
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = g + 8 * half;
+          a[h][half] = pack2(row[0] == r ? kBf16One : 0, row[1] == r ? kBf16One : 0);
+          a[h][2 + half] = pack2(row[2] == r ? kBf16One : 0, row[3] == r ? kBf16One : 0);
+        }
+      }
+      // 3 mma an n-tile and k-step
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= ntiles) break;
+        unsigned bf[2][kChunks][2];
+        feat.fragments(view, j, bf);
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) {
+          mma_bf16(acc[ch][j], a[0], bf[0][ch][0], bf[0][ch][1]);
+          if (n_valid > 16) mma_bf16(acc[ch][j], a[1], bf[1][ch][0], bf[1][ch][1]);
+        }
+      }
+      feat.done();
+      __syncwarp();  // row ids written
+
+      // rows first .. first + rows - 2 closed; the last stays open
+      if (rows > 1) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = g + 8 * half;
+          if (r >= first && r < first + rows - 1) {
+            if (r == first && head_pending)
+              park_row(0, half);
+            else
+              write_row(row_id[r], half);
+          }
+        }
+        head_pending = false;
+      }
+      base = first + rows - 1;
+      carry_id = row_id[base];
+      has_carry = true;
+      g0 += step;
+      __syncwarp();  // row ids read before the next step writes them
+    }
+    if (g == (base & 7)) {
+      if (base < 8)
+        park_row(1, 0);
+      else
+        park_row(1, 1);
+    }
+    return {1, cont, cont && !head_pending, carry_id};
+  }
+};
+
+// Where a warp's B tile lives (K1; K2 has none).
+__device__ __forceinline__ void set_tile(MomentFeature& f, unsigned short* p) {
+  f.tile = p;
+}
+__device__ __forceinline__ void set_tile(RowFeature&, unsigned short*) {}
+
+// The bf16x3 kernels' body: reduce_chunk's ownership and staging, the
+// warps' quarters (MmaWarp), then the quarters joined in order. Shared
+// memory: the stages, the parks, the row ids, the flags, then K1's B tiles
+// (b_floats a warp).
+template <int NT, class Stage, class Feature, class Out>
+__device__ __forceinline__ void reduce_chunk_mma(const Stage& in, Feature feat,
+                                                 const Out& out, int n,
+                                                 int num_segments, int chunk,
+                                                 int tile, int b_floats,
+                                                 float* smem) {
+  __shared__ int interval[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = num_segments;
+  const int chunks = (n + chunk - 1) / chunk;
+  const int b = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x % chunks) * chunk;
+  const int c1 = min(c0 + chunk, n);
+  const long long base = static_cast<long long>(b) * n;
+  const int* sg = in.seg_ids() + base;
+
+  // owned segments and their points, as reduce_chunk
+  const int before = c0 > 0 ? __ldg(sg + c0 - 1) : -1;
+  const int first = __ldg(sg + c0);
+  const int last = __ldg(sg + c1 - 1);
+  const int s_lo = c0 > 0 ? min(max(before + 1, 0), k) : 0;
+  const int s_hi = c1 < n ? min(max(last + 1, 0), k) : k;
+  if (s_lo >= s_hi) return;
+
+  const int stage_floats = in.floats(tile);
+  float* park = smem + 2 * stage_floats;  // [warps][kParkFloats]
+  int* row_ids = reinterpret_cast<int*>(park + kRangeWarps * kParkFloats);
+  RangeFlags* flags = reinterpret_cast<RangeFlags*>(row_ids + kRangeWarps * 16);
+  float* b_tiles = reinterpret_cast<float*>(flags + kRangeWarps);
+  if (warp == 0) {
+    const int p = first > before && first >= s_lo ? c0
+                                                  : warp_gallop(sg, c0, n, s_lo);
+    if (lane == 0) interval[0] = p;
+  } else if (warp == 1) {
+    const int p = warp_gallop(sg, last < k ? c1 : c0, n, s_hi);
+    if (lane == 0) interval[1] = p;
+  }
+  __syncthreads();
+  const int p0 = interval[0], p1 = interval[1];
+  const int tiles = (p1 - p0 + tile - 1) / tile;
+  if (tiles > 0) in.issue(base, p0, min(p0 + tile, p1), tile, smem);
+  cp_async_commit();
+
+  const int ncols = min(feat.columns(), kMmaCols);
+  set_tile(feat, reinterpret_cast<unsigned short*>(b_tiles + warp * b_floats));
+  MmaWarp<NT, Feature, Out> mw{{}, feat, out, park + warp * kParkFloats,
+                               row_ids + warp * 16, b, ncols, (ncols + 7) / 8};
+  const int quarter = tile / kRangeWarps;
+  // the segment open across quarters and tiles: column threadIdx.x
+  const int col = threadIdx.x;
+  float carry[kChunks] = {0.0f, 0.0f, 0.0f};
+  int carry_id = 0;
+  bool has_carry = false;
+  for (int t = 0; t < tiles; ++t) {
+    const int start = p0 + t * tile;
+    const int end = min(start + tile, p1);
+    if (t + 1 < tiles)  // the next tile, with the point before it
+      in.issue(base, end - 1, min(end + tile, p1), tile,
+               smem + ((t + 1) & 1) * stage_floats);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile t has landed; the last tile's parks are read
+
+    const int lo = t == 0 ? p0 : start - 1;
+    const auto view = in.view(smem + (t & 1) * stage_floats, base, lo, tile);
+    const int r0 = start + warp * quarter, r1 = min(r0 + quarter, end);
+    RangeFlags fl{0, 0, 0, 0};
+    if (r0 < r1) fl = mw.walk(view, r0, r1, p0, s_lo);
+    if (lane == 0) flags[warp] = fl;
+    __syncthreads();  // every quarter parked
+
+    for (int w = 0; w < kRangeWarps; ++w) {
+      const RangeFlags f = flags[w];
+      if (!f.nonempty) continue;
+      const float* head = park + w * kParkFloats;
+      const float* tail = head + kChunks * kMmaCols;
+      if (f.cont && f.head_parked) {  // the carried segment closes in w
+        if (col < ncols) {
+#pragma unroll
+          for (int ch = 0; ch < kChunks; ++ch) carry[ch] += head[ch * kMmaCols + col];
+          out.write(b, carry_id, col, fold3(carry[0], carry[1], carry[2]));
+        }
+      } else if (f.cont) {  // it runs through w
+        if (col < ncols)
+#pragma unroll
+          for (int ch = 0; ch < kChunks; ++ch) carry[ch] += tail[ch * kMmaCols + col];
+        continue;
+      } else if (has_carry && col < ncols) {  // it closed at w's start
+        out.write(b, carry_id, col, fold3(carry[0], carry[1], carry[2]));
+      }
+      if (col < ncols)
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) carry[ch] = tail[ch * kMmaCols + col];
+      carry_id = f.tail_id;
+      has_carry = true;
+    }
+  }
+  cp_async_wait<0>();
+  if (has_carry && col < ncols)
+    out.write(b, carry_id, col, fold3(carry[0], carry[1], carry[2]));
+  // the empty rows after the last point (all of them if there is none)
+  out.zero(b, p1 > p0 ? __ldg(sg + p1 - 1) + 1 : s_lo, s_hi, threadIdx.x,
+           kRangeThreads);
+}
+
+// K1's B tile, in floats a warp, for a group of ncols columns
+__host__ __device__ __forceinline__ int moment_tile_floats(int ncols) {
+  return kChunks * ((ncols + 7) / 8 * 8) * kBStride / 2;
+}
+
+// NT n-tiles (a group of up to 8 NT columns), at least MINB blocks an SM
+// (the plan's per_sm: 4 cap a thread at 128 registers, 3 at 168, 2 at 255)
+template <int NT, int MINB>
+__global__ void __launch_bounds__(kRangeThreads, MINB) segment_moments_bf16x3_kernel(
+    ColumnStage in, int n_tags, int n, int num_segments, int slots, int chunk,
+    int tile, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int c0 = static_cast<int>(blockIdx.y) * kMmaCols;
+  const int ncols = min(10 + slots + n_tags - c0, kMmaCols);
+  const int width = (ncols + 7) / 8 * 8;
+  const MomentFeature feat{slots, n_tags, c0, ncols, width, nullptr};
+  const MomentOut rows{out, kMoments + slots + n_tags, num_segments, c0};
+  reduce_chunk_mma<NT>(in, feat, rows, n, num_segments, chunk, tile,
+                       moment_tile_floats(ncols), smem);
+}
+
+template <int NT, int MINB>
+__global__ void __launch_bounds__(kRangeThreads, MINB) segment_sum_bf16x3_kernel(
+    RowStage in, int width, int n, int num_segments, int chunk, int tile,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  in.c0 = blockIdx.y * width;
+  in.w = min(width, in.f - in.c0);
+  const RowFeature feat{in.w, {}};
+  const RowOut rows{{out, in.f, num_segments, in.c0, in.w}};
+  reduce_chunk_mma<NT>(in, feat, rows, n, num_segments, chunk, tile, 0, smem);
+}
+
+// The instance for a group of ncols columns and the plan's blocks an SM:
+// NT = 2 (ncols <= 16) always at 4 blocks (its shared memory fits 4), NT
+// = 4 or 6 at 3 blocks where their shared memory fits 3, else at 2.
+template <template <int, int> class K, class... Args>
+int launch_mma(int ncols, const RangePlan& plan, void* stream, Args... args);
+
+// The bf16x3 kernels' plans: the largest tile in [kMinTile, 512] whose
+// staged columns fit kMmaStageBytes and whose block (two stages, the
+// scratch and K1's B tiles) leaves room for 3 an SM (a quarter of a tile,
+// 64 or 128 points, is a warp's walk); the grid as range_plan's. K2 stages whole rows up to kMmaCols columns,
+// wider ones in column groups of kGroupWidth (sum_plan's layouts).
+RangePlan mma_plan(int batch, int n, long long n_cols, long long b_floats,
+                   int groups, int ncols) {
+  RangePlan plan;
+  const auto smem = [&](long long tile) {
+    return 4 * (2 * n_cols * (tile + 8) + kMmaScratchFloats + kRangeWarps * b_floats);
+  };
+  plan.tile = 512;
+  while (plan.tile > kMinTile && (n_cols * plan.tile * 4 > kMmaStageBytes ||
+                                  smem(plan.tile) + kSmemReserved > kSmemPerSM / 3))
+    plan.tile /= 2;
+  plan.smem = smem(plan.tile);
+  plan_grid(plan, batch, n, groups, ncols <= 16 ? 4 : 3);
+  return plan;
+}
+
+SumPlan mma_sum_plan(int batch, int n, int f) {
+  SumPlan p;
+  p.width = f <= kMmaCols ? f : kGroupWidth;
+  p.pitch = p.width == f && f % 4 ? f : static_cast<int>(unit_pitch(p.width));
+  p.range = mma_plan(batch, n, 1LL + p.pitch, 0, (f + p.width - 1) / p.width,
+                     p.width);
+  return p;
+}
+
+template <template <int, int> class K, class... Args>
+int launch_mma(int ncols, const RangePlan& plan, void* stream, Args... args) {
+  if (ncols <= 16) return launch_chunks(K<2, 4>::fn(), plan, stream, args...);
+  if (ncols <= 32)
+    return plan.per_sm >= 3 ? launch_chunks(K<4, 3>::fn(), plan, stream, args...)
+                            : launch_chunks(K<4, 2>::fn(), plan, stream, args...);
+  return plan.per_sm >= 3 ? launch_chunks(K<6, 3>::fn(), plan, stream, args...)
+                          : launch_chunks(K<6, 2>::fn(), plan, stream, args...);
+}
+
+// The kernels as class templates, for launch_mma.
+template <int NT, int MINB>
+struct MomentsBf16x3 {
+  static auto fn() { return segment_moments_bf16x3_kernel<NT, MINB>; }
+};
+
+template <int NT, int MINB>
+struct SumBf16x3 {
+  static auto fn() { return segment_sum_bf16x3_kernel<NT, MINB>; }
+};
+
+}  // namespace
+
+extern "C" int ndtpu_segment_moments_bf16x3(
+    const void* seg, const void* xt, const void* yt, const void* zt,
+    const void* v, const void* cls, const void* const* tag_ptrs, int n_tags,
+    int batch, int n, int num_segments, int slots, void* out, void* stream) {
+  if (n_tags < 0 || n_tags > NDTPU_MAX_TAGS || batch < 0 || n < 0 ||
+      num_segments < 0 || slots < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  const ColumnStage in = moment_columns(seg, xt, yt, zt, v, cls, tag_ptrs,
+                                        n_tags, slots);
+  const long long cols = 10LL + slots + n_tags;
+  const long long groups = (cols + kMmaCols - 1) / kMmaCols;
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int ncols = static_cast<int>(cols < kMmaCols ? cols : kMmaCols);
+  const RangePlan plan = mma_plan(batch, n, column_count(in.cols),
+                                  moment_tile_floats(ncols),
+                                  static_cast<int>(groups), ncols);
+  return launch_mma<MomentsBf16x3>(ncols, plan, stream, in, n_tags, n,
+                                   num_segments, slots, plan.chunk, plan.tile,
+                                   static_cast<float*>(out));
+}
+
+extern "C" int ndtpu_segment_sum_bf16x3(const void* seg, const void* feats,
+                                        int batch, int n, int f,
+                                        int num_segments, void* out,
+                                        void* stream) {
+  if (batch < 0 || n < 0 || f < 1 || num_segments < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(batch) * num_segments == 0 || n == 0)
+    return static_cast<int>(cudaSuccess);
+  const SumPlan p = mma_sum_plan(batch, n, f);
+  const RowStage in = {static_cast<const int*>(seg),
+                       static_cast<const float*>(feats), f, p.pitch, 0, 0};
+  return launch_mma<SumBf16x3>(p.width, p.range, stream, in, p.width, n,
+                               num_segments, p.range.chunk, p.range.tile,
+                               static_cast<float*>(out));
 }

@@ -18,12 +18,23 @@ launch in its ``launches`` attribute) and runs its plain version only
 for CPU tensors. K1's wrapper counts a call captured into a CUDA graph,
 which launches nothing, in ``captured`` instead: each replay of that
 graph launches the kernel without calling the wrapper.
+
+The TPU kernels' precision switch: ``NDTPU_PALLAS_PRECISION=bf16x3``,
+read at each call (``precision``), sends K1 and K2 to their bf16x3 branch
+(``fused_moments_sorted_bf16x3``, ``segment_sum_sorted_bf16x3``): every
+f32 feature split into three bf16 chunks (``split_bf16x3``), each chunk
+summed by segment, the sums folded as ``(hi + mid) + lo``. On the card
+that is a one-hot contraction on the tensor cores (``mma.sync``, the
+section "bf16x3" of the source), on the CPU the plain versions. Each
+branch has its own ``launches`` and ``captured`` counts. f32 stays the
+default; K3 has no bf16x3 branch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -32,6 +43,8 @@ from ndtpu_torch.ops import _build
 SOURCE = "segment_moments.cu"
 MAX_TAGS = 8  # NDTPU_MAX_TAGS in the source
 N_MOMENTS = 13
+PRECISION_VAR = "NDTPU_PALLAS_PRECISION"
+U = 2.0**-24  # f32's unit roundoff
 # the chunk kernels; the names in the source are in brackets
 RANGE_WARPS = 4                       # warps per block (kRangeWarps)
 RANGE_THREADS = 32 * RANGE_WARPS
@@ -208,6 +221,90 @@ def segment_sum_error_bound(feats, seg_ids, num_segments: int):
     return (torch.ceil(rows / 32) + 5) * 2.0**-24 * mag
 
 
+def precision() -> str:
+    """The TPU kernels' precision, read at each call as the JAX package
+    reads it (ndtpu/ops/pallas/segment_moments.py:120): "bf16x3" when
+    NDTPU_PALLAS_PRECISION is exactly "bf16x3", else "f32"."""
+    return "bf16x3" if os.environ.get(PRECISION_VAR, "f32") == "bf16x3" else "f32"
+
+
+def split_bf16x3(x):
+    """f32 ``x`` as (hi, mid, lo): f32 tensors holding bf16 values, hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to
+    nearest even and each residual formed in f32, as the TPU kernels'
+    bf16x3 branch forms them. hi + mid + lo is x to within 2**-24 |x|
+    (not always exactly: a residual can need a ninth bit)."""
+    def bf16(a):
+        return a.to(torch.bfloat16).to(torch.float32)
+
+    hi = bf16(x)
+    r1 = x - hi
+    mid = bf16(r1)
+    return hi, mid, bf16(r1 - mid)
+
+
+def segment_sum_sorted_bf16x3_plain(feats, seg_ids, num_segments: int):
+    """K2's bf16x3 branch in plain PyTorch: the three chunks of ``feats``
+    [..., N, F] summed by segment in f32 (``segment_sum_sorted_plain``, in
+    index order), folded as (S_hi + S_mid) + S_lo, the TPU kernel's order
+    of the fold. Ids outside [0, num_segments) are dropped."""
+    f = feats.shape[-1]
+    s = segment_sum_sorted_plain(torch.cat(split_bf16x3(feats), -1), seg_ids,
+                                 num_segments)
+    return (s[..., :f] + s[..., f:2 * f]) + s[..., 2 * f:]
+
+
+def fused_moments_sorted_bf16x3_plain(xt, yt, zt, v, cls, seg_ids,
+                                      num_segments: int, slots: int,
+                                      tags=None):
+    """K1's bf16x3 branch in plain PyTorch: K1's columns
+    (``moment_columns``) through ``segment_sum_sorted_bf16x3_plain``. A
+    column with one nonzero a segment (the tags) gives (hi + mid) + lo of
+    that value, a 0/1 column (the count, the class histogram) its exact
+    sum: as the TPU kernel and the card's kernel give them."""
+    feats = moment_columns(xt, yt, zt, v, cls, slots, tuple(tags or ()))
+    return segment_sum_sorted_bf16x3_plain(feats, seg_ids, num_segments)
+
+
+def bf16x3_error_bound(feats, seg_ids, num_segments: int):
+    """Bound on the bf16x3 branch's error against the exact sum, per
+    output entry (f64): the card's kernel, the plain version and the TPU
+    kernel's order alike.
+
+    A row of L points. The split errs by at most u |x| a term (u =
+    2**-24: lo is the last residual rounded to 8 bits), the fold by 2 u.
+    Each chunk's sum: the kernel adds a k-step of 16 points and the
+    running sum in one mma; the tensor core aligns the 17 terms to the
+    largest and truncates, at most 2 u a term, and truncates the result,
+    2 u more: 36 u (|running sum| + sum|terms|) a k-step. A row spans at
+    most ceil(L / 16) + 2 r + 1 k-steps over r <= ceil(L / 64) + 2 warp
+    quarters, whose sums are joined with r f32 additions. So the error is
+    at most ((36 m + r + 2)(1 + 2**-7) + 1) u sum|x| (the chunks' sum|.|
+    is at most (1 + 2**-7) sum|x|), plus L 2**-120 for chunks that fall
+    below f32's normal range. The f32 plain version's (L - 1) u and the
+    TPU kernel's per-128-point folds lie inside it. 0 for an empty row."""
+    mag = segment_sum_sorted_plain(feats.double().abs(), seg_ids, num_segments)
+    rows = segment_sum_sorted_plain(
+        torch.ones_like(feats[..., :1], dtype=torch.float64), seg_ids,
+        num_segments)
+    quarters = torch.ceil(rows / 64) + 2
+    steps = torch.ceil(rows / 16) + 2 * quarters + 1
+    return (((36 * steps + quarters + 2) * (1 + 2.0**-7) + 1) * U * mag
+            + rows * 2.0**-120)
+
+
+def fused_moments_bf16x3_error_bound(xt, yt, zt, v, cls, seg_ids,
+                                     num_segments: int, slots: int,
+                                     tags=None):
+    """``bf16x3_error_bound`` of K1's columns, with one more u for the
+    rounded products xx, xy, ... (f64)."""
+    tags = tuple(t.double() for t in tags or ())
+    cols = moment_columns(xt.double(), yt.double(), zt.double(), v.double(),
+                          cls, slots, tags)
+    mag = segment_sum_sorted_plain(cols.abs(), seg_ids, num_segments)
+    return bf16x3_error_bound(cols, seg_ids, num_segments) + U * mag
+
+
 _PTR, _INT, _OUT = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 # the source's C entries and their arguments
 ENTRIES = {
@@ -225,6 +322,10 @@ ENTRIES = {
     + [_INT] * 3 + [_PTR, _PTR],                      # n_tags, n, K; out, stream
     "ndtpu_segment_sum": [_PTR, _PTR]                 # seg, feats
     + [_INT] * 4 + [_PTR, _PTR],                      # batch, n, F, K; out, stream
+    # the bf16x3 branch: K1's and K2's arguments
+    "ndtpu_segment_moments_bf16x3": [_PTR] * 6 + [ctypes.POINTER(_PTR)]
+    + [_INT] * 5 + [_PTR, _PTR],
+    "ndtpu_segment_sum_bf16x3": [_PTR, _PTR] + [_INT] * 4 + [_PTR, _PTR],
     "ndtpu_range_plan": [_INT] * 4 + [_OUT],
     "ndtpu_sum_plan": [_INT] * 3 + [_OUT],
 }
@@ -314,7 +415,11 @@ def column_pointers(xt, yt, zt, v, cls, seg_ids, slots: int, tags):
             v.data_ptr(), cls.data_ptr() if slots else None, tag_ptrs)
 
 
-def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
+def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags,
+            entry="ndtpu_segment_moments", counted=None):
+    """K1's entry (or its bf16x3 branch's, ``entry``) on CUDA tensors,
+    counted on ``counted`` (the wrapper)."""
+    counted = counted or fused_moments_sorted
     n = seg_ids.shape[-1]
     batch = math.prod(seg_ids.shape[:-1])
     shape = (tuple(seg_ids.shape[:-1])
@@ -323,15 +428,15 @@ def _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags):
         return torch.zeros(shape, dtype=torch.float32, device=seg_ids.device)
     out = torch.empty(shape, dtype=torch.float32, device=seg_ids.device)
     stream = torch.cuda.current_stream(seg_ids.device).cuda_stream
-    err = _entry("ndtpu_segment_moments")(
+    err = _entry(entry)(
         *column_pointers(xt, yt, zt, v, cls, seg_ids, slots, tags),
         len(tags), batch, n, num_segments, slots, out.data_ptr(), stream,
     )
-    _raise_on(err, "segment_moments")
+    _raise_on(err, entry[len("ndtpu_"):])
     if torch.cuda.is_current_stream_capturing():  # each replay launches it
-        fused_moments_sorted.captured += 1
+        counted.captured += 1
     else:
-        fused_moments_sorted.launches += 1
+        counted.launches += 1
     return out
 
 
@@ -347,8 +452,12 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
     one nonzero per segment. Returns [..., num_segments, 13 + slots + T]
     f32 rows [count, sum x~ (3), sum x~x~^T (9), class histogram (slots),
     tag values]. One kernel launch for all leading dims on CUDA tensors;
-    the plain version on CPU tensors.
+    the plain version on CPU tensors. Under NDTPU_PALLAS_PRECISION=bf16x3
+    (``precision``), ``fused_moments_sorted_bf16x3``.
     """
+    if precision() == "bf16x3":
+        return fused_moments_sorted_bf16x3(xt, yt, zt, v, cls, seg_ids,
+                                           num_segments, slots, tags=tags)
     tags = tuple(tags) if tags else ()
     dev = check_moment_inputs(xt, yt, zt, v, cls, seg_ids, slots, tags)
     if dev.type == "cpu":
@@ -359,6 +468,27 @@ def fused_moments_sorted(xt, yt, zt, v, cls, seg_ids, num_segments: int,
 
 fused_moments_sorted.launches = 0
 fused_moments_sorted.captured = 0
+
+
+def fused_moments_sorted_bf16x3(xt, yt, zt, v, cls, seg_ids,
+                                num_segments: int, slots: int, tags=None):
+    """K1's bf16x3 branch (the TPU kernel under
+    NDTPU_PALLAS_PRECISION=bf16x3): ``fused_moments_sorted``'s arguments,
+    checks and output. On CUDA tensors one launch of the tensor-core
+    kernel, counted here (``launches``, ``captured``), never the f32
+    kernel: a refused launch raises. On CPU tensors
+    ``fused_moments_sorted_bf16x3_plain``."""
+    tags = tuple(tags) if tags else ()
+    dev = check_moment_inputs(xt, yt, zt, v, cls, seg_ids, slots, tags)
+    if dev.type == "cpu":
+        return fused_moments_sorted_bf16x3_plain(xt, yt, zt, v, cls, seg_ids,
+                                                 num_segments, slots, tags)
+    return _launch(xt, yt, zt, v, cls, seg_ids, num_segments, slots, tags,
+                   "ndtpu_segment_moments_bf16x3", fused_moments_sorted_bf16x3)
+
+
+fused_moments_sorted_bf16x3.launches = 0
+fused_moments_sorted_bf16x3.captured = 0
 
 
 def _device_of(seg_ids):
@@ -410,7 +540,28 @@ def segment_sum_sorted(feats, seg_ids, num_segments: int):
     ``seg_ids`` [..., N] int32 (non-decreasing per leading index; ids >=
     num_segments dropped) into [..., num_segments, F]. One kernel launch
     for all leading dims on CUDA tensors, in a fixed summation order (see
-    ``segment_sum_error_bound``); the plain version on CPU tensors."""
+    ``segment_sum_error_bound``); the plain version on CPU tensors. Under
+    NDTPU_PALLAS_PRECISION=bf16x3, ``segment_sum_sorted_bf16x3``."""
+    if precision() == "bf16x3":
+        return segment_sum_sorted_bf16x3(feats, seg_ids, num_segments)
+    return _segment_sum(feats, seg_ids, num_segments, "ndtpu_segment_sum",
+                        segment_sum_sorted, segment_sum_sorted_plain)
+
+
+def segment_sum_sorted_bf16x3(feats, seg_ids, num_segments: int):
+    """K2's bf16x3 branch (the TPU kernel under
+    NDTPU_PALLAS_PRECISION=bf16x3): ``segment_sum_sorted``'s arguments,
+    checks and output. On CUDA tensors one launch of the tensor-core
+    kernel, counted here, never the f32 kernel: a refused launch raises.
+    On CPU tensors ``segment_sum_sorted_bf16x3_plain``."""
+    return _segment_sum(feats, seg_ids, num_segments,
+                        "ndtpu_segment_sum_bf16x3", segment_sum_sorted_bf16x3,
+                        segment_sum_sorted_bf16x3_plain)
+
+
+def _segment_sum(feats, seg_ids, num_segments, entry, counted, plain):
+    """K2's checks, then ``plain`` on CPU tensors or one launch of
+    ``entry`` counted on ``counted``."""
     if feats.dim() < 2 or feats.dim() != seg_ids.dim() + 1:
         raise ValueError(f"feats [..., N, F] and seg_ids [..., N], got "
                          f"{tuple(feats.shape)} and {tuple(seg_ids.shape)}")
@@ -422,19 +573,25 @@ def segment_sum_sorted(feats, seg_ids, num_segments: int):
     _check("seg_ids", seg_ids, torch.int32, shape, dev)
     _check("feats", feats, torch.float32, shape + (feats.shape[-1],), dev)
     if dev.type == "cpu":
-        return segment_sum_sorted_plain(feats, seg_ids, num_segments)
+        return plain(feats, seg_ids, num_segments)
     n, f = feats.shape[-2:]
     batch = math.prod(shape[:-1])
     out_shape = shape[:-1] + (num_segments, f)
     if n * batch * num_segments == 0:  # nothing to sum: no launch
         return torch.zeros(out_shape, dtype=torch.float32, device=dev)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    err = _entry("ndtpu_segment_sum")(
+    err = _entry(entry)(
         seg_ids.data_ptr(), feats.data_ptr(), batch, n, f, num_segments,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "segment_sum")
-    segment_sum_sorted.launches += 1
+    _raise_on(err, entry[len("ndtpu_"):])
+    if torch.cuda.is_current_stream_capturing():
+        counted.captured += 1
+    else:
+        counted.launches += 1
     return out
 
 
 segment_sum_sorted.launches = 0
+segment_sum_sorted.captured = 0
+segment_sum_sorted_bf16x3.launches = 0
+segment_sum_sorted_bf16x3.captured = 0

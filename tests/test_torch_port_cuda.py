@@ -775,3 +775,152 @@ def test_kernel_micro_modes_launch_their_kernels(cuda):
                for m, kern in chip_smoke.MICRO_KERNELS.items()}
         assert got == {m: 3 if m == mode else 0
                        for m in chip_smoke.MICRO_KERNELS}, mode
+
+
+# ---- the bf16x3 branch of K1 and K2 (NDTPU_PALLAS_PRECISION=bf16x3) ----
+
+def k1_inputs(b, n, k, slots, layout, n_tags, seed):
+    """``inputs`` on the card as chip_smoke's K1 dict."""
+    args, tags = inputs(b, n, k, slots, seed=seed, layout=layout,
+                        n_tags=n_tags)
+    xt, yt, zt, v, cls, seg = (a.cuda() for a in args)
+    return dict(xt=xt, yt=yt, zt=zt, v=v, cls=cls if slots else None, seg=seg,
+                tags=[t.cuda() for t in tags], slots=slots, k=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,slots,layout,n_tags", [
+    (3, 20000, 500, 0, "random", 3), (3, 20000, 500, 29, "random", 3),
+    (1, 37, 30, 2, "random", 3), (2, 5000, 1, 0, "random", 0),
+    (16, 4096, 4000, 0, "singletons", 0),    # 16 segments a 16-point k-step
+    (16, 4096, 4000, 29, "singletons", 8),
+    (1, 1 << 20, 1, 1, "one", 2),            # one segment, the whole cloud
+    (16, 70000, 300, 29, "edges", 8),        # runs across quarters and tiles
+    (1, 50000, 180, 1, "edges", 2),
+    (1, 200000, 3000, 1, "gaps", 3),         # empty rows, long dropped tail
+    (16, 20000, 700, 29, "gaps", 8),
+    (2, 300000, 80, 0, "long", 1),           # runs longer than a chunk
+    (2, 5000, 60, 40, "random", 8),          # 58 columns: two column groups
+])
+def test_segment_moments_bf16x3_kernel_matches_plain(cuda, b, n, k, slots,
+                                                     layout, n_tags):
+    """chip_smoke.check_k1_bf16x3: bit-identical launches, the count,
+    class and tag columns equal to the bf16x3 plain version, the sums
+    within its bound; one launch a call, none of the f32 kernel's. A
+    cloud alone gets another launch plan, so its sums may take another
+    order: its count, class and tag columns equal its row of the batch,
+    the rest within twice the bound."""
+    x = k1_inputs(b, n, k, slots, layout, n_tags, seed=n + slots)
+    k1, f32 = sm.fused_moments_sorted_bf16x3, sm.fused_moments_sorted
+    before = (k1.launches, f32.launches)
+    chip_smoke.check_k1_bf16x3(x, f"{layout} [{b}, {n}] -> {k}")
+    # the check's two launches of the branch and one of the f32 kernel
+    assert (k1.launches, f32.launches) == (before[0] + 2, before[1] + 1)
+    out = chip_smoke.run_probe(k1, x)
+    one = chip_smoke.run_probe(k1, {**{c: x[c][0] for c in ("xt", "yt", "zt", "v",
+                                                         "seg")},
+                                 "cls": None if x["cls"] is None else x["cls"][0],
+                                 "tags": [t[0] for t in x["tags"]],
+                                 "slots": slots, "k": k})
+    exact = [0] + list(range(13, out.shape[-1]))
+    assert torch.equal(one[..., exact], out[0][..., exact])
+    bound = chip_smoke.run_probe(sm.fused_moments_bf16x3_error_bound, x)[0]
+    assert bool(((one - out[0]).abs().double() <= 2 * bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,k,f,layout", [
+    ((), 300000, 2100, 14, "ranks"), ((), 20000, 500, 42, "ranks"),
+    ((16,), 70000, 1209, 41, "random"),     # the canonical batch's width
+    ((2,), 5000, 64, 33, "ranks"), ((), 1000, 1, 1, "ranks"),
+    ((3,), 37, 30, 16, "ranks"), ((), 100000, 900, 48, "ranks"),
+    ((), 100000, 900, 49, "ranks"),         # column groups from 49
+    ((2,), 20000, 300, 256, "ranks"), ((), 9000, 40, 1000, "edges"),
+    ((), 300000, 80, 14, "long"), ((4,), 60000, 700, 41, "gaps"),
+    ((16,), 4096, 4000, 14, "singletons"), ((2,), 50000, 180, 42, "edges"),
+])
+def test_segment_sum_bf16x3_kernel_matches_plain(cuda, lead, n, k, f, layout):
+    """chip_smoke.check_k2_bf16x3 at K2's widths: whole rows up to 48
+    columns, groups of 32 above."""
+    rng = np.random.default_rng(n + f)
+    b = int(np.prod(lead))
+    if layout == "ranks":
+        seg = np.stack([ranks(n, k, 9 if f > 32 else 0, rng) for _ in range(b)])
+    else:
+        seg = layout_ids(layout, b, n, k, rng)
+    seg = torch.from_numpy(seg.reshape(lead + (n,))).to(cuda)
+    feats = torch.from_numpy(rng.normal(size=lead + (n, f)).astype(np.float32)
+                             ).to(cuda)
+    before = sm.segment_sum_sorted_bf16x3.launches
+    chip_smoke.check_k2_bf16x3(feats, seg, k, f"{layout} {lead} {n} x {f}")
+    assert sm.segment_sum_sorted_bf16x3.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_bf16x3_kernels_capture_into_a_cuda_graph(cuda):
+    """Calls captured into a CUDA graph are counted in ``captured``, not in
+    ``launches``, through the precision switch too; replays give the
+    eager outputs."""
+    x = k1_inputs(3, 20000, 500, 29, "random", 3, seed=5)
+    seg = x["seg"]
+    feats = torch.randn(seg.shape + (41,), device=cuda)
+    k1, k2 = sm.fused_moments_sorted_bf16x3, sm.segment_sum_sorted_bf16x3
+    eager = (chip_smoke.run_probe(k1, x), k2(feats, seg, 500))
+    counts = [(k.launches, k.captured) for k in (k1, k2)]
+    graph = torch.cuda.CUDAGraph()
+    with chip_smoke.bf16x3(), torch.cuda.graph(graph):
+        out = (chip_smoke.run_probe(sm.fused_moments_sorted, x),
+               sm.segment_sum_sorted(feats, seg, 500))
+    assert [(k.launches, k.captured) for k in (k1, k2)] == [
+        (c[0], c[1] + 1) for c in counts]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+@pytest.mark.cuda
+def test_bf16x3_wrappers_raise_instead_of_falling_back(cuda):
+    """What the kernels refuse (more than 65535 column groups) raises,
+    with no launch of either kernel counted; mixed devices raise; empty
+    inputs give zeros without a launch."""
+    kernels = (sm.fused_moments_sorted_bf16x3, sm.segment_sum_sorted_bf16x3,
+               sm.fused_moments_sorted, sm.segment_sum_sorted)
+    counts = [k.launches for k in kernels]
+    seg = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    col = torch.ones((1, 1), device=cuda)
+    with pytest.raises(RuntimeError):
+        sm.segment_sum_sorted_bf16x3(
+            torch.ones((1, 1, 32 * 65535 + 1), device=cuda), seg, 1)
+    slots = 48 * 65536
+    with pytest.raises(RuntimeError):
+        sm.fused_moments_sorted_bf16x3(col, col, col, col, seg, seg, 1, slots)
+    with chip_smoke.bf16x3(), pytest.raises(RuntimeError):
+        sm.segment_sum_sorted(torch.ones((1, 1, 32 * 65535 + 1), device=cuda),
+                              seg, 1)
+    with pytest.raises(ValueError):
+        sm.fused_moments_sorted_bf16x3(col.cpu(), col, col, col, None, seg, 1, 0)
+    for n, k in ((0, 5), (4, 0)):
+        c = torch.zeros((2, n), device=cuda)
+        s = torch.zeros((2, n), dtype=torch.int32, device=cuda)
+        assert torch.equal(sm.fused_moments_sorted_bf16x3(c, c, c, c, None, s, k,
+                                                          0, tags=[c]),
+                           torch.zeros((2, k, 14), device=cuda))
+        assert torch.equal(sm.segment_sum_sorted_bf16x3(c[..., None], s, k),
+                           torch.zeros((2, k, 1), device=cuda))
+    assert [k.launches for k in kernels] == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,values", chip_smoke.MODES)
+def test_modes_give_the_default_request_on_card(cuda, label, values):
+    """A small request under each A/B mode equals the default's bit for
+    bit on the card."""
+    pts = torch.from_numpy(chip_smoke.example_cloud(2, 4096, seed=3)).to(cuda)
+    outs = []
+    for vals in ({k: None for k in values}, values):
+        with chip_smoke.environ(vals):
+            outs.append(ndt_downsample(pts, 256, search="probe"))
+    a, b = outs
+    for x, y in list(zip(a[:4], b[:4])) + [(a[4].min_kl, b[4].min_kl),
+                                          (a[4].max_kl, b[4].max_kl)]:
+        assert torch.equal(x, y), label
