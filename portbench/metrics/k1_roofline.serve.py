@@ -1,0 +1,16 @@
+"""K1's share of its roofline in a request: its least time (each kept
+point's staged columns read once, its rows written once, at the memory
+rate; untagged, 3 tag columns) over its mean device time a launch in
+the trace."""
+from portbench.reference.ndt import max_segments
+from portbench.yardstick import k1_bound_s
+
+
+def read(run):
+    launches, mean_s = run.trace.kernel(run.k1_name) if run.trace else (0, None)
+    if not launches:
+        return None
+    b = run.traffic["clouds_per_request"]
+    bound = k1_bound_s(run.k1_points_per_cloud * b, b,
+                       max_segments(run.cfg["serve_nds"]), 0)
+    return 100.0 * bound / mean_s
