@@ -53,6 +53,7 @@ from ndtpu_torch.core import voxel as vx
 from ndtpu_torch.core.kl import INT32_MAX, neighbor_min_kl
 from ndtpu_torch.core.moments import finalize_moments, segment_moments_soa
 from ndtpu_torch.utils.device import resolve_device
+from ndtpu_torch.utils.profiling import span
 
 # Reference constants, ndt.h:38-43.
 DOWNSAMPLE_UPPER_THRESHOLD = 0.2
@@ -594,31 +595,34 @@ def _build_state(px, py, pz, mask, classes, num_class_slots, voxel_size,
                  converged, mins, maxs, k_max, presorted=None):
     """Sort by voxel key (unless the search's sort is given), reduce the
     moments, compute the neighbour KLs."""
-    lens, offsets = vx.estimate_voxel_grid(mins, maxs, voxel_size)
-    tagged = num_class_slots > 1
-    cols = presorted
-    if cols is None:
-        cols = _sort_payload_at(px, py, pz, mask, classes, voxel_size, mins,
-                                maxs, tagged)
-    inp = _moment_inputs(cols, voxel_size, lens, offsets, k_max, tagged)
-    mom = segment_moments_soa(
-        inp["xt"], inp["yt"], inp["zt"], inp["v"], inp["seg"], k_max,
-        classes=inp["cls"], num_class_slots=num_class_slots if tagged else 0,
-        tags=inp["tags"],
-    )
-    counts = mom["counts"]
-    class_hist = mom["class_hist"] if tagged else counts[..., None]
-    occupied = counts > 0
-    seg_zyx = torch.where(occupied[..., None],
-                          torch.round(mom["tag_sums"]).to(torch.int32),
-                          INT32_MAX)
-    seg_centres = vx.voxel_to_metric_space(
-        torch.where(occupied[..., None], seg_zyx.flip(-1), 0),
-        voxel_size[:, None], offsets[:, None, :],
-    )
-    means, covs = finalize_moments(counts, mom["sum_shift"], mom["sum_outer"],
-                                   seg_centres)
-    min_kl, max_kl = neighbor_min_kl(means, covs, counts, seg_zyx, lens)
+    with span("ndtpu.ndt.moments"):
+        lens, offsets = vx.estimate_voxel_grid(mins, maxs, voxel_size)
+        tagged = num_class_slots > 1
+        cols = presorted
+        if cols is None:
+            cols = _sort_payload_at(px, py, pz, mask, classes, voxel_size,
+                                    mins, maxs, tagged)
+        inp = _moment_inputs(cols, voxel_size, lens, offsets, k_max, tagged)
+        mom = segment_moments_soa(
+            inp["xt"], inp["yt"], inp["zt"], inp["v"], inp["seg"], k_max,
+            classes=inp["cls"],
+            num_class_slots=num_class_slots if tagged else 0,
+            tags=inp["tags"],
+        )
+        counts = mom["counts"]
+        class_hist = mom["class_hist"] if tagged else counts[..., None]
+        occupied = counts > 0
+        seg_zyx = torch.where(occupied[..., None],
+                              torch.round(mom["tag_sums"]).to(torch.int32),
+                              INT32_MAX)
+        seg_centres = vx.voxel_to_metric_space(
+            torch.where(occupied[..., None], seg_zyx.flip(-1), 0),
+            voxel_size[:, None], offsets[:, None, :],
+        )
+        means, covs = finalize_moments(counts, mom["sum_shift"],
+                                       mom["sum_outer"], seg_centres)
+    with span("ndtpu.ndt.kl"):
+        min_kl, max_kl = neighbor_min_kl(means, covs, counts, seg_zyx, lens)
     return NDTResult(
         means=means, covs=covs, counts=counts, class_hist=class_hist,
         zyx=seg_zyx, min_kl=min_kl, max_kl=max_kl, lens=lens,
@@ -787,16 +791,18 @@ def ndt_downsample(points, n_desired: int, mask=None, classes=None,
     classes = classes.to(torch.int32)
     k_max = max_segments(n_desired)
     px, py, pz = (points[..., a].contiguous() for a in range(3))
-    mins, maxs = _limits(px, py, pz, mask)
-    voxel_size, converged, presorted = _search(
-        px, py, pz, mask, classes, n_desired, mins, maxs,
-        num_class_slots > 1, search, fixed_voxel_size, warm_start_size,
-        key_mode,
-    )
+    with span("ndtpu.ndt.search"):
+        mins, maxs = _limits(px, py, pz, mask)
+        voxel_size, converged, presorted = _search(
+            px, py, pz, mask, classes, n_desired, mins, maxs,
+            num_class_slots > 1, search, fixed_voxel_size, warm_start_size,
+            key_mode,
+        )
     state = _build_state(px, py, pz, mask, classes, num_class_slots,
                          voxel_size, converged, mins, maxs, k_max,
                          presorted=presorted)
-    pcl, covs, labels, out_mask = _emit(state, n_desired, prune_order)
+    with span("ndtpu.ndt.emit"):
+        pcl, covs, labels, out_mask = _emit(state, n_desired, prune_order)
     return pcl, covs, labels, out_mask, state
 
 
@@ -804,7 +810,8 @@ def ndt_prune(state: NDTResult, n_out: int, prune_order: str = "ascending"):
     """Second-stage prune to a coarser resolution: the removed set is a
     prefix of the same ranking, so this is the emit with a larger
     to_remove."""
-    return _emit(state, n_out, prune_order)
+    with span("ndtpu.ndt.emit"):
+        return _emit(state, n_out, prune_order)
 
 
 class NDTSampler:

@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from ndtpu_torch.parallel.mesh import data_size
 from ndtpu_torch.utils.device import resolve_device
+from ndtpu_torch.utils.profiling import span
 
 
 def epoch_order(n: int, shuffle: bool = True, seed: int = 0):
@@ -97,10 +98,15 @@ def to_device(batch, device):
 
 def prefetch_to_device(it: Iterable, device) -> Iterator:
     """Yield the batches of ``it`` as device tensors, the next one's copy
-    issued before the current one is handed out."""
-    pending = None
-    for batch in it:
-        nxt = to_device(batch, device)
+    issued before the current one is handed out; the making and copy of
+    each batch is an ``ndtpu.data`` span."""
+    it, pending = iter(it), None
+    while True:
+        with span("ndtpu.data"):
+            batch = next(it, None)
+            nxt = None if batch is None else to_device(batch, device)
+        if nxt is None:
+            break
         if pending is not None:
             yield pending
         pending = nxt

@@ -23,6 +23,7 @@ from ndtpu_torch.models.ndtnet import NDTNetSegmentation
 from ndtpu_torch.parallel.mesh import run_ranks
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.utils.device import resolve_device
+from ndtpu_torch.utils.profiling import span
 
 
 def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -67,12 +68,17 @@ class SegmentationPipeline:
     def __call__(self, points):
         """points [B, N, 3] -> (logits [B, n_desired, num_classes + 1] in
         the compute type, out_mask [B, n_desired], NDTResult)."""
-        points = torch.as_tensor(points, dtype=torch.float32,
-                                 device=self.device)
-        pcl, covs, _, mask, state = ndt_preprocessing_with_state(
-            self.n_desired, points, None, self.num_classes, search=self.search,
-        )
-        return self.model(pcl, covs, return_logits=True), mask, state
+        with span("ndtpu.request"):
+            with span("ndtpu.h2d"):
+                points = torch.as_tensor(points, dtype=torch.float32,
+                                         device=self.device)
+            pcl, covs, _, mask, state = ndt_preprocessing_with_state(
+                self.n_desired, points, None, self.num_classes,
+                search=self.search,
+            )
+            with span("ndtpu.model"):
+                logits = self.model(pcl, covs, return_logits=True)
+        return logits, mask, state
 
 
 def entry(canonical: bool = False, device="cuda"):

@@ -43,6 +43,7 @@ from ndtpu_torch.parallel.collectives import all_reduce_gradients, all_reduce_su
 from ndtpu_torch.parallel.mesh import data_group
 from ndtpu_torch.preprocessing.batch import ndt_preprocessing_with_state
 from ndtpu_torch.train.state import make_capturable
+from ndtpu_torch.utils.profiling import capturing, replayed, span
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int,
@@ -126,10 +127,12 @@ def loss_and_metrics(logits, onehot, mask=None):
 def _update(state, loss):
     """Backward of ``loss``, the gradients summed over the data group (if
     any), and one optimizer update."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    all_reduce_gradients(state.model.parameters())
-    state.apply_gradients()
+    with span("ndtpu.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        all_reduce_gradients(state.model.parameters())
+    with span("ndtpu.optimizer"):
+        state.apply_gradients()
 
 
 def _make_prep(n_desired_nds, n_classes, search):
@@ -161,10 +164,12 @@ def make_ndt_seg_step(n_desired_nds: int, n_classes: int,
     prep = _make_prep(n_desired_nds, n_classes, search)
 
     def step(state, points, gt, *voxel_sizes):
-        pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
-        logits = state.model.train()(pcl, covs, return_logits=True)
-        loss, metrics = loss_and_metrics(logits, onehot, mask)
-        _update(state, loss)
+        with span("ndtpu.step"):
+            pcl, covs, onehot, mask, _ = prep(points, gt, *voxel_sizes)
+            with span("ndtpu.forward"):
+                logits = state.model.train()(pcl, covs, return_logits=True)
+                loss, metrics = loss_and_metrics(logits, onehot, mask)
+            _update(state, loss)
         return state, metrics
 
     def eval_step(state, points, gt, *voxel_sizes):
@@ -185,10 +190,12 @@ def make_classification_step(n_desired_nds: int, n_classes: int,
     prep = _make_prep(n_desired_nds, n_classes, search)
 
     def step(state, points, label_onehot):
-        pcl, covs, _, _, _ = prep(points, None)
-        logits = state.model.train()(pcl, covs, return_logits=True)
-        loss, metrics = loss_and_metrics(logits, label_onehot)
-        _update(state, loss)
+        with span("ndtpu.step"):
+            pcl, covs, _, _, _ = prep(points, None)
+            with span("ndtpu.forward"):
+                logits = state.model.train()(pcl, covs, return_logits=True)
+                loss, metrics = loss_and_metrics(logits, label_onehot)
+            _update(state, loss)
         return state, metrics
 
     def eval_step(state, points, label_onehot):
@@ -210,20 +217,24 @@ def make_multiscale_seg_step(fine_res: int, coarse_res: int, n_classes: int,
     prep_fine = _make_prep(fine_res, n_classes, search)
     prep_coarse = _make_prep(coarse_res, n_classes, search)
 
-    def forward(model, points, gt):
+    def preps(points, gt):
         p1, c1, gt1, m1, state1 = prep_fine(points, gt)
         p2, c2, _, _, _ = prep_coarse(points, gt)
-        return model(p1, c1, state1, p2, c2, return_logits=True), gt1, m1
+        return (p1, c1, state1, p2, c2), gt1, m1
 
     def step(state, points, gt):
-        logits, gt1, m1 = forward(state.model.train(), points, gt)
-        loss, metrics = loss_and_metrics(logits, gt1, m1)
-        _update(state, loss)
+        with span("ndtpu.step"):
+            inputs, gt1, m1 = preps(points, gt)
+            with span("ndtpu.forward"):
+                logits = state.model.train()(*inputs, return_logits=True)
+                loss, metrics = loss_and_metrics(logits, gt1, m1)
+            _update(state, loss)
         return state, metrics
 
     def eval_step(state, points, gt):
+        inputs, gt1, m1 = preps(points, gt)
         with torch.no_grad():
-            logits, gt1, m1 = forward(state.model.eval(), points, gt)
+            logits = state.model.eval()(*inputs, return_logits=True)
             return loss_and_metrics(logits, gt1, m1)[1]
 
     return step, eval_step
@@ -245,10 +256,12 @@ def make_pointnet_seg_step(n_classes: int | None = None):
         return gt
 
     def step(state, points, gt):
-        onehot = one_hot(gt)
-        logits = state.model.train()(points, return_logits=True)
-        loss, metrics = loss_and_metrics(logits, onehot)
-        _update(state, loss)
+        with span("ndtpu.step"):
+            onehot = one_hot(gt)
+            with span("ndtpu.forward"):
+                logits = state.model.train()(points, return_logits=True)
+                loss, metrics = loss_and_metrics(logits, onehot)
+            _update(state, loss)
         return state, metrics
 
     def eval_step(state, points, gt):
@@ -296,10 +309,12 @@ def _restore(state, snap):
 
 class _Graph:
     """One captured step: its static index buffer, the metrics of the last
-    replay and their sums since ``zero``."""
+    replay and their sums since ``zero``, and the records of its spans
+    (``utils/profiling.py::capturing``), which each replay times."""
 
-    def __init__(self, graph, idx, last, total):
+    def __init__(self, graph, idx, last, total, spans):
         self.graph, self.idx, self.last, self.total = graph, idx, last, total
+        self.spans = spans
 
 
 class EpochScan:
@@ -317,12 +332,14 @@ class EpochScan:
     (``torch.cuda.graph``, global capture mode) with a static index
     buffer; then each step is a device copy of its order row into that
     buffer, a fill of the step's rate (train) and one replay, which also
-    adds the step's metrics to sums that live in the graph. A capture
-    that fails raises. The graph holds the state's tensors by address: the
-    state must not be replaced (restore a checkpoint before the first
-    epoch). A kernel wrapper counts no launch at the capture, which
-    launches nothing; a replay launches the captured kernels without
-    calling their wrappers.
+    adds the step's metrics to sums that live in the graph. The capture
+    runs inside ``utils/profiling.py::capturing()``: the step's spans are
+    event-record nodes of the graph that time every replay, and
+    ``spans()`` reads the last one. A capture that fails raises. The
+    graph holds the state's tensors by address: the state must not be
+    replaced (restore a checkpoint before the first epoch). A kernel
+    wrapper counts no launch at the capture, which launches nothing; a
+    replay launches the captured kernels without calling their wrappers.
 
     With ``sharding`` (the data group) the arrays are this rank's block of
     a ``DeviceCachedDataset`` sharded over it, ``order`` holds global rows,
@@ -351,25 +368,27 @@ class EpochScan:
         steps = order.shape[0]
         if steps == 0:
             raise ValueError("an epoch needs at least one batch")
-        if order.device.type != "cuda":
-            total = None
-            for row in order:
-                last = self.run_step(state, row, arrays)
-                total = (dict(last) if total is None else
-                         {k: total[k] + last[k] for k in total})
-        else:
-            g = self._graph(state, arrays, order.shape[1])
-            for t in g.total.values():
-                t.zero_()
-            for s in range(steps):
-                g.idx.copy_(order[s])
+        with span("ndtpu.epoch"):
+            if order.device.type != "cuda":
+                total = None
+                for row in order:
+                    last = self.run_step(state, row, arrays)
+                    total = (dict(last) if total is None else
+                             {k: total[k] + last[k] for k in total})
+            else:
+                g = self._graph(state, arrays, order.shape[1])
+                for t in g.total.values():
+                    t.zero_()
+                for s in range(steps):
+                    g.idx.copy_(order[s])
+                    if self.train:
+                        state.set_rate(state.step + s)
+                    g.graph.replay()
+                replayed(g.spans)
                 if self.train:
-                    state.set_rate(state.step + s)
-                g.graph.replay()
-            if self.train:
-                state.step += steps
-            last = {k: v.clone() for k, v in g.last.items()}
-            total = g.total
+                    state.step += steps
+                last = {k: v.clone() for k, v in g.last.items()}
+                total = g.total
         return state, {k: v / steps for k, v in total.items()}, last
 
     def _graph(self, state, arrays, b):
@@ -396,12 +415,13 @@ class EpochScan:
         graph = torch.cuda.CUDAGraph()
         mode = "global" if data_group() is None else "thread_local"
         with torch.cuda.graph(graph, capture_error_mode=mode):
-            last = self.run_step(state, idx, arrays)
+            with capturing() as spans:
+                last = self.run_step(state, idx, arrays)
             for k, v in last.items():
                 total[k].add_(v)
         if snap is not None:
             state.step = snap[0]  # the capture ran apply_gradients' host part
-        return _Graph(graph, idx, last, total)
+        return _Graph(graph, idx, last, total, spans)
 
 
 def make_epoch_scan(step_fn, train: bool = True, sharding=None) -> EpochScan:
