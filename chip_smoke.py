@@ -20,11 +20,18 @@ Phases, each of which ends the script with a non-zero exit on failure:
    yardstick call (``torch.segment_reduce`` over the materialised
    columns; the port never calls it) and a read floor (``torch.sum``
    over as many bytes as the bound counts, under the same L2 flush).
+   Before it, the eval-mode Dense -> BatchNorm (-> ReLU) epilogue
+   (``ops/epilogue.py``): its registers (``nvcc -Xptxas -v``), the kernel
+   against its plain version bit for bit at every serving site's shape
+   (a request's 512,000 rows at each per-point (C, ReLU), the T-Nets'
+   512-row fc sites) and at a ragged 4097 rows, and its time at
+   [512000, 1024] and [512000, 512] beside the plain chain, its bound and
+   a read floor.
 3. Serving: a small batch on the card against the same pipeline on the
    CPU, then SegmentationPipeline(n_desired=1000, num_classes=28,
    feature_dim=768) answers 3 requests of 16 x 70000-point clouds. Each
    must give finite [16, 1000, 29] logits, every cloud converged with 1000
-   NDs, and exactly one K1 launch.
+   NDs, exactly one K1 launch and 16 epilogue launches.
 4. The giant cloud (bench.py --giant): one 1,048,576-point cloud to 2080
    NDs through make_point_sharded_downsample(search="probe") on a one-rank
    NCCL group. K1 is held against its plain version on the moment pass's
@@ -232,6 +239,7 @@ from ndtpu_torch.models import (
     PointNetSegmentation,
 )
 from ndtpu_torch.ops import _build
+from ndtpu_torch.ops import epilogue as epi
 from ndtpu_torch.ops import moment_probes as mp
 from ndtpu_torch.ops import segment_moments as sm
 from ndtpu_torch.ops.fps import farthest_point_sampling
@@ -594,6 +602,82 @@ def count_syncs(fn):
     return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
+# a serving request's rows (portbench's 512 clouds of M NDs), and the
+# epilogue's timed shapes: [rows, C] with the ReLU, as the request's T-Net
+# conv3 and head conv1 sites run it
+SERVE_ROWS = 512 * M
+EPILOGUE_TIMED = ((SERVE_ROWS, 1024, True), (SERVE_ROWS, 512, True))
+# [rows, C] and ReLU of every epilogue site of a serving request: the
+# per-point sites at the request's rows (T-Nets' conv1-3 with the ReLU, the
+# backbone's conv1-3 without, the head's conv1-3 with), the T-Nets' fc1-2
+# at 512 clouds; and a ragged row count, whose last rows leave threads idle
+EPILOGUE_SITES = tuple((SERVE_ROWS, c, relu) for c, relu in (
+    (64, True), (64, False), (128, True), (128, False), (256, True),
+    (512, True), (768, False), (1024, True))) + (
+    (512, 512, True), (512, 256, True), (4097, 128, True), (4097, 768, False))
+
+
+def epilogue_inputs(rows, c, seed):
+    """A product [rows, c] of normals and the five [c] vectors of a random
+    eval BatchNorm site (variances 0.1 to 10), on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    var = 10.0 ** (2 * torch.rand(c, generator=g, device="cuda") - 1)
+    return draw(rows, c), (draw(c), draw(c), torch.sqrt(var + 1e-5), draw(c),
+                           draw(c))
+
+
+def epilogue_phase():
+    """The Dense -> BatchNorm (-> ReLU) epilogue (ops/epilogue.py): its
+    registers (nvcc -Xptxas -v), the kernel against its plain version (the
+    modules' op chain) bit for bit at EPILOGUE_SITES, then its time at
+    EPILOGUE_TIMED beside the chain, its bound and a read floor. Returns
+    its kernels-line entry without launches."""
+    src = _build._CSRC / epi.SOURCE
+    out = _build.BUILD_DIR / "epilogue_ptxas.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = _build.compile_source(src, out, "-Xptxas", "-v")
+    regs = [line.strip() for line in log.splitlines()
+            if "registers" in line or "Compiling entry" in line]
+    print("epilogue ptxas: " + " | ".join(regs))
+    for i, (rows, c, relu) in enumerate(EPILOGUE_SITES):
+        y, vecs = epilogue_inputs(rows, c, i)
+        a = epi.dense_bn_act(y, *vecs, relu)
+        b = epi.dense_bn_act_plain(y, *vecs, relu)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"epilogue [{rows}, {c}] relu={relu}: "
+                                 "differs from the chain")
+        del y, a, b
+    print(f"epilogue: {len(EPILOGUE_SITES)} shapes == chain, bit for bit: "
+          + ", ".join(f"[{r}, {c}]{' relu' if relu else ''}"
+                      for r, c, relu in EPILOGUE_SITES))
+    entry = {"name": "dense_bn_act", "route": "cuda",
+             "source": "ndtpu_torch/csrc/pointwise_epilogue.cu",
+             "replaces": "none (XLA fuses the chain on the TPU)",
+             "max_abs_err": 0.0, "registers": regs, "shapes": {}}
+    for rows, c, relu in EPILOGUE_TIMED:
+        y, vecs = epilogue_inputs(rows, c, c)
+        ms = times_ms({"kernel": lambda: epi.dense_bn_act(y, *vecs, relu),
+                       "plain": lambda: epi.dense_bn_act_plain(y, *vecs, relu)})
+        bound_ms, bound_by, moved = bound(rows, 4 * c, 4 * rows * c + 20 * c,
+                                          6 * rows * c)
+        floor_ms = read_floor_ms(moved)
+        label = f"[{rows}, {c}]"
+        print(f"epilogue {label}: kernel {ms['kernel']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, bound {bound_ms:.4f} ms ({moved / 1e6:.2f}"
+              f" MB by {bound_by}), read floor {floor_ms:.4f} ms, "
+              f"{moved / ms['kernel'] / 1e9:.2f} TB/s")
+        entry["shapes"][label] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "read_floor_ms": floor_ms}
+        del y
+    return entry
+
+
 def serve_phase():
     small_batch_check()
     pipe = SegmentationPipeline(n_desired=M, num_classes=C, feature_dim=F,
@@ -607,6 +691,7 @@ def serve_phase():
     lat = []
     for i, pts in enumerate(requests):
         before = launches.launches
+        epilogue_before = epi.dense_bn_act.launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -631,6 +716,9 @@ def serve_phase():
         print(f"serve request {i}: {dev_ms:.3f} ms (events), {host_ms:.3f} ms "
               f"(host), {B / dev_ms * 1e3:.1f} clouds/s, voxel sizes "
               f"{state.voxel_size.min().item():.4f}..{state.voxel_size.max().item():.4f}")
+        if epi.dense_bn_act.launches - epilogue_before != 16:
+            raise AssertionError(f"request {i}: {epi.dense_bn_act.launches - epilogue_before}"
+                                 " epilogue launches, expected 16")
     n_launches = launches.launches
     syncs = count_syncs(lambda: pipe(requests[0]))
     print(f"serve: median {statistics.median(lat):.3f} ms/request, "
@@ -3931,8 +4019,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    epilogue = epilogue_phase()
     k1, real = k1_phase()
+    before = epi.dense_bn_act.launches
     served = serve_phase()
+    epilogue["launches"] = epi.dense_bn_act.launches - before  # serving's
     # after serving: the requests meet the card as the K1 phase left it
     k2_canonical = k2_batch(real)
     giant_launches, giant_err, giant_times, k3_k2 = giant_phase()
@@ -3971,7 +4062,8 @@ def main() -> int:
                             sc_k2_err)
     k2["batch"] = {k: v for k, v in k2_canonical.items() if k != "max_abs_err"}
     print(json.dumps({"not_a_tpu_kernel": fps}))
-    print(json.dumps({"kernels": [k1] + k3_k2 + probes + bf16x3_entries}))
+    print(json.dumps({"kernels": [k1] + k3_k2 + probes + bf16x3_entries
+                      + [epilogue]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

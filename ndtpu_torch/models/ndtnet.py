@@ -24,7 +24,7 @@ import functools
 import torch
 from torch import nn
 
-from ndtpu_torch.models.dense import layers
+from ndtpu_torch.models.dense import dense_norm, layers
 from ndtpu_torch.models.tnet import TNet
 from ndtpu_torch.utils.device import resolve_device
 
@@ -83,11 +83,11 @@ class NDTNet(nn.Module):
             parts.append(einsum("bij,bnjk->bnik", t, cov).reshape(b, n, 9))
         if self.extra_type == AdditionalFeatures.FEATURE_VECTOR:
             parts.append(features)
-        x = self.bn1(self.conv1(cat(parts)))  # no ReLU
+        x = dense_norm(self.conv1, self.bn1, cat(parts), relu=False)
         x = einsum("bnj,bji->bni", x, self.t2(x))
         x_t2 = x
-        x = self.bn2(self.conv2(x))
-        x = self.bn3(self.conv3(x))
+        x = dense_norm(self.conv2, self.bn2, x, relu=False)
+        x = dense_norm(self.conv3, self.bn3, x, relu=False)
         return x, x_t2
 
 
@@ -176,8 +176,8 @@ def segmentation_head(model, x, x_t2, return_logits):
     for (the head of NDTNetSegmentation and PointNetSegmentation)."""
     pooled = x.amax(dim=1, keepdim=True).expand_as(x)
     x = cat([x_t2, pooled])
-    x = torch.relu(model.bn1(model.conv1(x)))
-    x = torch.relu(model.bn2(model.conv2(x)))
-    x = torch.relu(model.bn3(model.conv3(x)))
+    x = dense_norm(model.conv1, model.bn1, x, relu=True)
+    x = dense_norm(model.conv2, model.bn2, x, relu=True)
+    x = dense_norm(model.conv3, model.bn3, x, relu=True)
     x = model.conv4(x)
     return x if return_logits else torch.log_softmax(x, dim=-1)

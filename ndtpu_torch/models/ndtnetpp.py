@@ -29,7 +29,7 @@ from ndtpu_torch.models.ndtnet import (
     classification_head_layers,
     segmentation_head_layers,
 )
-from ndtpu_torch.models.dense import layers
+from ndtpu_torch.models.dense import dense_norm, layers
 from ndtpu_torch.utils.device import resolve_device
 
 
@@ -46,7 +46,7 @@ class ResidualConnection(nn.Module):
         self.bn1 = norm(out_points)
 
     def forward(self, x):
-        h = torch.relu(self.bn1(self.conv1(x.transpose(1, 2))))
+        h = dense_norm(self.conv1, self.bn1, x.transpose(1, 2), relu=True)
         return h.transpose(1, 2)
 
 
@@ -87,7 +87,8 @@ class NDTNetPP(nn.Module):
         zeros = points2.new_zeros(points2.shape[:2] + (self.feature_dim,),
                                   dtype=self.dtype or points2.dtype)
         feat2, _ = self.ndtnet2(points2, covariances2, zeros)
-        return self.bn1(self.conv1(feat1_ + feat2)), feat1
+        return dense_norm(self.conv1, self.bn1, feat1_ + feat2,
+                          relu=False), feat1
 
 
 class NDTNetPPClassification(nn.Module):
@@ -140,8 +141,8 @@ class NDTNetPPSegmentation(nn.Module):
         x, x1 = self.ndnet(points1, covariances1, state1, points2,
                            covariances2)
         x = self.residual(x) + x1
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        x = torch.relu(self.bn3(self.conv3(x)))
+        x = dense_norm(self.conv1, self.bn1, x, relu=True)
+        x = dense_norm(self.conv2, self.bn2, x, relu=True)
+        x = dense_norm(self.conv3, self.bn3, x, relu=True)
         x = self.conv4(x)
         return x if return_logits else torch.softmax(x, dim=-1)

@@ -24,7 +24,7 @@ from ndtpu_torch.models.ndtnet import (
     segmentation_head,
     segmentation_head_layers,
 )
-from ndtpu_torch.models.dense import layers
+from ndtpu_torch.models.dense import dense_norm, layers
 from ndtpu_torch.models.tnet import TNet
 from ndtpu_torch.utils.device import resolve_device
 
@@ -48,11 +48,11 @@ class PointNet(nn.Module):
 
     def forward(self, x):
         x = torch.nan_to_num(einsum("bij,bnj->bni", self.t1(x), x))
-        x = self.bn1(self.conv1(x))  # no ReLU
+        x = dense_norm(self.conv1, self.bn1, x, relu=False)
         x = einsum("bnj,bji->bni", x, self.t2(x))
         x_t2 = x
-        x = self.bn2(self.conv2(x))
-        x = self.bn3(self.conv3(x))
+        x = dense_norm(self.conv2, self.bn2, x, relu=False)
+        x = dense_norm(self.conv3, self.bn3, x, relu=False)
         return x, x_t2
 
 

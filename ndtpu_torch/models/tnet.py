@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ndtpu_torch.models.dense import layers
+from ndtpu_torch.models.dense import dense_norm, layers
 
 
 class TNet(nn.Module):
@@ -36,12 +36,12 @@ class TNet(nn.Module):
 
     def forward(self, x):
         """x: [B, N, in_dim] -> transform [B, in_dim, in_dim]."""
-        h = torch.relu(self.bn1(self.conv1(x)))
-        h = torch.relu(self.bn2(self.conv2(h)))
-        h = torch.relu(self.bn3(self.conv3(h)))
+        h = dense_norm(self.conv1, self.bn1, x, relu=True)
+        h = dense_norm(self.conv2, self.bn2, h, relu=True)
+        h = dense_norm(self.conv3, self.bn3, h, relu=True)
         h = h.amax(dim=1)
-        h = torch.relu(self.bn4(self.fc1(h)))
-        h = torch.relu(self.bn5(self.fc2(h)))
+        h = dense_norm(self.fc1, self.bn4, h, relu=True)
+        h = dense_norm(self.fc2, self.bn5, h, relu=True)
         h = self.fc3(h)
         eye = torch.eye(self.in_dim, dtype=h.dtype, device=h.device)
         return (h + eye.reshape(-1)).reshape(-1, self.in_dim, self.in_dim)

@@ -12,7 +12,9 @@ trace, spans and kernels, in build/profile_serve_trace/), read two ways:
   requests. The span's events sit on the stream, so its time includes
   any wait for the host before its first kernel.
 - kernels: device time by kernel name a request, kernels a request, and
-  the device's idle share (1 - kernel time / wall time).
+  the device's idle share (1 - kernel time / wall time);
+- epilogue launches: the Dense -> BatchNorm (-> ReLU) epilogue's launches
+  a request, by its wrapper's count (``ops/epilogue.py``; 16 in eval).
 
 Prints a summary and writes it as JSON to --out.
 """
@@ -28,6 +30,7 @@ import time
 import torch
 
 from ndtpu_torch.data.synthetic import make_batch
+from ndtpu_torch.ops.epilogue import dense_bn_act
 from ndtpu_torch.serve import SegmentationPipeline
 from ndtpu_torch.utils import profiling
 
@@ -73,6 +76,7 @@ def main():
         pipe(pts)
     torch.cuda.synchronize()
     profiling.reset()
+    launches = dense_bn_act.launches
     with profiling.profile_trace("build/profile_serve_trace") as prof:
         t0 = time.perf_counter()
         for _ in range(REQUESTS):
@@ -83,6 +87,7 @@ def main():
         "device": torch.cuda.get_device_name(0),
         "requests": REQUESTS,
         "stages_ms_median": stages(profiling.spans()),
+        "epilogue_launches": (dense_bn_act.launches - launches) / REQUESTS,
         "profile": kernels(prof, wall_us),
     }
     path = pathlib.Path(args.out)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ndtpu_torch.models.dense import Dense, layers
+from ndtpu_torch.models.dense import Dense, dense_norm, layers
 from ndtpu_torch.models.ndtnet import NDTNetSegmentation
 from ndtpu_torch.models.tnet import TNet
 from ndtpu_torch.scripts._timing import add_timing_flags, device_name, measure
@@ -68,9 +68,7 @@ class DenseBNStack(nn.Module):
 
     def forward(self, x):
         for d, bn in zip(self.dense, self.norm):
-            x = bn(d(x))
-            if self.relu:
-                x = torch.relu(x)
+            x = dense_norm(d, bn, x, self.relu)
         return x if self.final is None else self.final(x)
 
 
