@@ -27,6 +27,7 @@ from torch import nn
 from ndtpu_torch.models.dense import dense_norm, layers
 from ndtpu_torch.models.tnet import TNet
 from ndtpu_torch.utils.device import resolve_device
+from ndtpu_torch.utils.profiling import span
 
 
 class AdditionalFeatures(enum.Enum):
@@ -94,9 +95,10 @@ class NDTNet(nn.Module):
 class NDTNetClassification(nn.Module):
     """ndtnet.py:166-196. Output [B, num_classes]: probabilities, or
     logits with ``return_logits=True``. The pool is the max over all M
-    rows, padded rows included, as in the JAX module. Built on ``device``
-    (the card unless the caller asks for the CPU), in ``dtype`` and
-    ``param_dtype`` (NDTNet)."""
+    rows, padded rows included, as in the JAX module; the pool and the
+    head are the span ``ndtpu.head``. Built on ``device`` (the card unless
+    the caller asks for the CPU), in ``dtype`` and ``param_dtype``
+    (NDTNet)."""
 
     def __init__(self, point_dim: int = 3, num_classes: int = 512,
                  feature_dim: int = 768, device="cuda", dtype=None,
@@ -111,7 +113,8 @@ class NDTNetClassification(nn.Module):
 
     def forward(self, points, covariances, return_logits: bool = False):
         x, _ = self.feature_extractor(points, covariances)
-        return classification_head(self, x.amax(dim=1), return_logits)
+        with span("ndtpu.head"):
+            return classification_head(self, x.amax(dim=1), return_logits)
 
 
 def classification_head_layers(model, in_dim, num_classes, dtype,

@@ -42,7 +42,8 @@ UPDATE = [("ndtpu.backward", "ndtpu.step"), ("ndtpu.optimizer", "ndtpu.step")]
 # each step's spans in order, as (name, its parent's name)
 STEP_SPANS = {
     "seg": [("ndtpu.step", None)] + PREP + [("ndtpu.forward", "ndtpu.step")] + UPDATE,
-    "cls": [("ndtpu.step", None)] + PREP + [("ndtpu.forward", "ndtpu.step")] + UPDATE,
+    "cls": ([("ndtpu.step", None)] + PREP + [("ndtpu.forward", "ndtpu.step"),
+                                              ("ndtpu.head", "ndtpu.forward")] + UPDATE),
     "multiscale": ([("ndtpu.step", None)] + PREP + PREP
                    + [("ndtpu.forward", "ndtpu.step"),
                       ("ndtpu.ndt.emit", "ndtpu.forward")] + UPDATE),
@@ -164,6 +165,22 @@ def test_step_is_bit_identical_with_the_profiler_on(kind):
         assert torch.equal(a, b)
 
 
+def test_classification_head_span():
+    """A classification step under the profiler has one ``ndtpu.head``
+    host event, inside its ``ndtpu.forward``; with the profiler off the
+    step records no span."""
+    state, step, args = train_setup("cls")
+    step(state, *args)
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=ACTS) as prof:
+        step(state, *args)
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, []).append(e.time_range)
+    (head,), (fwd,) = events["ndtpu.head"], events["ndtpu.forward"]
+    assert fwd.start <= head.start and head.end <= fwd.end
+
+
 def test_epoch_scan_and_prefetch_emit_their_spans():
     """On the CPU the epoch scan is a loop of eager steps inside one
     ``ndtpu.epoch``; each batch the prefetcher makes is an
@@ -201,6 +218,7 @@ NEW_METRICS = {
     "optimizer_ms.train": (("ndtpu.optimizer",), "ndtpu.step"),
     "search_ms.train": (("ndtpu.ndt.search",), "ndtpu.step"),
     "kl_ms.train": (("ndtpu.ndt.kl",), "ndtpu.step"),
+    "head_ms.train": (("ndtpu.head",), "ndtpu.step"),
     "search_ms.serve": (("ndtpu.ndt.search",), "ndtpu.request"),
     "kl_ms.serve": (("ndtpu.ndt.kl",), "ndtpu.request"),
     "prep_idle_ms.train": (("ndtpu.prep",), "ndtpu.step"),
